@@ -1,0 +1,87 @@
+"""The session plan cache: content-keyed reuse of built plans.
+
+A built plan is keyed by
+
+* the **structural fingerprint** of the optimized IR
+  (:func:`repro_torch.plan.ir.fingerprint`),
+* the **emitter signature** (every dictionary code the closure embeds),
+* engine × dedup × annotate mode/slack, and
+* the **capacity-bucket signature** of the source extensions
+  (:func:`repro_torch.relalg.bucket_cap` of each source's row count, plus
+  its buffer capacity) — the quantization that lets *ranges* of extension
+  sizes share one closure, and turns a growing source into O(log n)
+  rebuilds.
+
+Entries are replaced in place when the engine rebuilds on overflow (the
+bigger capacities serve every smaller extension of the same bucket), and
+evicted LRU beyond ``maxsize``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Callable, Dict, Optional, Tuple
+
+from repro_torch.plan.ir import Node
+
+
+@dataclasses.dataclass
+class CachedPlan:
+    """One built execution plan: the closure plus everything the session
+    needs to report stats without re-planning."""
+
+    key: Tuple
+    plan: object                 # repro_torch.plan.lower.LogicalPlan
+    emitter: object              # repro_torch.core.rdfizer.RDFizer
+    counts: Dict[Node, int]      # plan-time row counts (exact or bound)
+    caps: Dict[Node, int]        # plan-time buffer capacities
+    fn: Callable                 # sources -> (kg, raw, overflowed)
+    engine: str
+    dedup: Optional[str]
+    mode: str
+
+
+class PlanCache:
+    """Tiny LRU keyed on the tuple above; shared across sessions."""
+
+    def __init__(self, maxsize: int = 128):
+        self.maxsize = maxsize
+        self._entries: "OrderedDict[Tuple, CachedPlan]" = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key: Tuple) -> Optional[CachedPlan]:
+        entry = self._entries.get(key)
+        if entry is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return entry
+
+    def put(self, key: Tuple, entry: CachedPlan) -> None:
+        self._entries[key] = entry
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        self._entries.clear()
+        self.hits = 0
+        self.misses = 0
+
+    def stats(self) -> Dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses,
+                "size": len(self._entries)}
+
+
+#: process-wide cache shared by every :class:`~repro_torch.api.KGEngine` session
+PLAN_CACHE = PlanCache()
+
+
+def clear_plan_cache() -> None:
+    """Drop every cached plan (benchmarks use this to measure cold paths)."""
+    PLAN_CACHE.clear()

@@ -1,0 +1,68 @@
+"""``EngineConfig`` — the one frozen value that configures a session.
+
+Every field is validated in ``__post_init__``: a bad ``engine``/``dedup``/
+``mode``/``slack``/``verify`` raises ``ValueError`` naming the field before
+any planning work starts. :meth:`EngineConfig.cache_sig` is the static
+configuration component of the plan-cache key.
+
+Static verification (the reference's ``verify="plan"``/``"full"``) is not
+ported yet: ``verify`` defaults to ``"off"`` and the other two levels
+raise ``NotImplementedError``. The KG does not depend on the setting.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+#: δ strategies :func:`repro_torch.relalg.ops.dedup_rows` implements
+#: (``None`` = engine default, :data:`repro_torch.relalg.DEFAULT_DEDUP`)
+DEDUP_STRATEGIES = (None, "lex", "hash")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Frozen configuration of one :class:`~repro_torch.api.KGEngine`
+    session (field semantics are documented on ``KGEngine``)."""
+
+    engine: str = "sdm"
+    dedup: Optional[str] = None
+    optimize: bool = True
+    mode: str = "exact"
+    slack: float = 1.0
+    verify: str = "off"
+
+    def __post_init__(self):
+        if self.engine not in ("rmlmapper", "sdm"):
+            raise ValueError(f"unknown engine {self.engine!r} "
+                             "(expected 'rmlmapper' or 'sdm')")
+        if self.dedup not in DEDUP_STRATEGIES:
+            raise ValueError(f"unknown dedup strategy {self.dedup!r} "
+                             "(expected None, 'lex' or 'hash')")
+        if self.mode not in ("exact", "bound"):
+            raise ValueError(f"unknown annotate mode {self.mode!r} "
+                             "(expected 'exact' or 'bound')")
+        try:
+            slack = float(self.slack)
+        except (TypeError, ValueError):
+            raise ValueError(f"bad slack {self.slack!r} (expected a finite "
+                             "number >= 1)") from None
+        if not math.isfinite(slack) or slack < 1.0:
+            raise ValueError(f"bad slack {self.slack!r} (expected a finite "
+                             "number >= 1 — capacities below the annotated "
+                             "counts would truncate on the first run)")
+        object.__setattr__(self, "slack", slack)
+        if self.verify not in ("off", "plan", "full"):
+            raise ValueError(f"unknown verify level {self.verify!r} "
+                             "(expected 'off', 'plan' or 'full')")
+        if self.verify != "off":
+            raise NotImplementedError(
+                f"verify={self.verify!r}: static plan verification is not "
+                "ported yet (it is the port's static-verification slice); "
+                "use verify='off'")
+
+    def cache_sig(self) -> Tuple:
+        """The static configuration component of the plan-cache key —
+        every config field that changes the built program and is not
+        already covered by the IR fingerprint or the emitter signature."""
+        return (self.engine, self.dedup, self.mode, self.slack)

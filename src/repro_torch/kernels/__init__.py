@@ -1,0 +1,58 @@
+"""Dispatch policy and launch bookkeeping shared by every kernel package.
+
+Each kernel package keeps the ref/ops/kernel triple:
+
+* ``ref.py``    — the plain PyTorch version of the function;
+* ``kernel.py`` — the wrapper around the hand-written CUDA kernel
+  (``csrc/*.cu``, built at first use by :mod:`repro_torch.kernels._lib`);
+* ``ops.py``    — the dispatcher the relational operators call.
+
+The policy, defined once here: a CUDA tensor always goes to the kernel,
+a CPU tensor to the plain version. There is no fallback: a CUDA launch
+that cannot be made raises. ``use_kernel=True`` demands the kernel (and
+so raises for a CPU tensor).
+
+Every kernel wrapper adds one to its entry of the launch counts each time
+it launches its kernel, and nowhere else, so a run can show that it went
+through the kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+_LAUNCHES: Dict[str, int] = {"rowhash": 0, "hash_neighbor_flags": 0,
+                             "radix_partition": 0}
+
+
+def count_launch(name: str) -> None:
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Launches per kernel wrapper since the last reset."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def resolve_use_kernel(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Kernel for a CUDA tensor, plain version for a CPU tensor.
+
+    ``use_kernel=True`` on a CPU tensor and ``use_kernel=False`` on a CUDA
+    tensor raise: the plain version is taken only because the tensor lies
+    on the CPU.
+    """
+    on_cuda = x.device.type == "cuda"
+    if use_kernel is None:
+        return on_cuda
+    if use_kernel and not on_cuda:
+        raise ValueError(f"kernel requested for a tensor on {x.device}; "
+                         "the CUDA kernels take CUDA tensors only")
+    if not use_kernel and on_cuda:
+        raise ValueError("a CUDA tensor always takes the kernel")
+    return bool(use_kernel)

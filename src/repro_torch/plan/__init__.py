@@ -1,0 +1,25 @@
+"""MapSDI logical-plan subsystem: IR, optimizing planner, compiler.
+
+``lower`` turns a ``DIS`` into a logical plan DAG, ``optimize`` runs Rules
+1–3 plus selection pushdown and common-subplan elimination as symbolic
+rewrites (zero device work), ``annotate`` sizes every buffer at plan time,
+and ``compile_plan`` lowers the optimized DAG to one ``sources -> (KG,
+raw)`` closure.
+"""
+from .ir import (Distinct, EmitTriples, EquiJoin, Node, Pred, Project,
+                 Scan, Select, Union, fingerprint, intern, iter_nodes,
+                 make_select, tree_size)
+from .lower import LogicalPlan, lower, selection_preds
+from .optimize import (PlanStats, cse, merge_maps, optimize,
+                       push_projections, push_selections)
+from .annotate import annotate, join_match_total
+from .compile import compile_plan, execute_node, input_names
+
+__all__ = [
+    "Distinct", "EmitTriples", "EquiJoin", "LogicalPlan", "Node",
+    "PlanStats", "Pred", "Project", "Scan", "Select", "Union", "annotate",
+    "compile_plan", "cse", "execute_node", "fingerprint", "input_names",
+    "intern", "iter_nodes", "join_match_total", "lower", "make_select",
+    "merge_maps", "optimize", "push_projections", "push_selections",
+    "selection_preds", "tree_size",
+]

@@ -1,0 +1,194 @@
+"""Compiling the optimized logical plan to device execution.
+
+:func:`compile_plan` lowers the DAG to one ``sources -> (KG, raw)``
+closure executing pre-processing *and* semantification. It runs eagerly:
+every buffer has a plan-time capacity, so the shapes of one closure are
+fixed across calls (which keeps it capturable as a CUDA graph later).
+Shared subplans (CSE'd nodes, join parents) are evaluated once per call.
+
+Execution is memoized on the structurally-hashable node itself, so equal
+subtrees collapse even if a rewrite produced them as separate objects.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional
+
+import torch
+
+from repro_torch.relalg import (Table, distinct, equi_join, project,
+                                project_as, round_cap, select_mask)
+from repro_torch.relalg.ops import _masked_data, compact
+from repro_torch.relalg.table import pad_rows
+
+from .ir import (Distinct, EmitTriples, EquiJoin, Node, Project, Scan,
+                 Select, Union, iter_nodes)
+from .lower import LogicalPlan
+
+
+def _fit(table: Table, cap: Optional[int]) -> Table:
+    """Re-buffer a compacted table at a plan-time capacity (device only)."""
+    if cap is None or cap == table.capacity:
+        return table
+    if cap < table.capacity:
+        return Table(data=table.data[:cap],
+                     count=torch.clamp(table.count, max=cap),
+                     attrs=table.attrs)
+    return Table(data=pad_rows(table.data, cap), count=table.count,
+                 attrs=table.attrs)
+
+
+def _pred_mask(table: Table, preds) -> torch.Tensor:
+    mask = torch.ones((table.capacity,), dtype=torch.bool,
+                      device=table.device)
+    for p in preds:
+        col = table.column(p.attr)
+        if p.op == "eq":
+            mask &= col == p.code
+        else:  # 'neq' / 'notnull' both exclude one code
+            mask &= col != p.code
+    return mask
+
+
+def execute_node(node: Node, sources: Mapping[str, Table],
+                 memo: Dict[Node, Table], emitter=None,
+                 dedup: Optional[str] = None,
+                 caps: Optional[Mapping[Node, int]] = None,
+                 overflow: Optional[List[torch.Tensor]] = None) -> Table:
+    """Evaluate one DAG node (and, via ``memo``, each shared subtree once).
+
+    When ``overflow`` is a list, every capped operator appends a 0-d bool
+    flag — "this node needed more rows than its plan-time capacity and was
+    truncated" — exactly once per unique node. ``KGEngine`` reduces the
+    flags to its recompile-on-overflow signal.
+    """
+    hit = memo.get(node)
+    if hit is not None:
+        return hit
+    caps = caps or {}
+
+    def run(child: Node) -> Table:
+        return execute_node(child, sources, memo, emitter, dedup, caps,
+                            overflow)
+
+    def capped(table: Table) -> Table:
+        cap = caps.get(node)
+        if overflow is not None and cap is not None:
+            overflow.append(table.count > cap)
+        return _fit(table, cap)
+
+    if isinstance(node, Scan):
+        out = sources[node.source]
+    elif isinstance(node, Project):
+        out = project_as(run(node.child), list(node.spec))
+    elif isinstance(node, Select):
+        child = run(node.child)
+        out = capped(select_mask(child, _pred_mask(child, node.preds)))
+    elif isinstance(node, Distinct):
+        out = capped(distinct(run(node.child), dedup=dedup))
+    elif isinstance(node, Union):
+        parts = [run(c) for c in node.inputs]
+        aligned = [parts[0]] + [project(p, parts[0].attrs) for p in parts[1:]]
+        data = torch.cat([_masked_data(p) for p in aligned], dim=0)
+        keep = torch.cat([p.valid_mask for p in aligned])
+        data, count = compact(data, keep)
+        out = Table(data=data, count=count, attrs=parts[0].attrs)
+    elif isinstance(node, EquiJoin):
+        left, right = run(node.left), run(node.right)
+        cap = caps.get(node, round_cap(left.capacity * 4))
+        out, total = equi_join(left, right, node.left_key, node.right_key,
+                               out_capacity=cap,
+                               right_suffix=node.right_suffix)
+        if overflow is not None:
+            overflow.append(total > cap)
+    elif isinstance(node, EmitTriples):
+        if emitter is None:
+            raise ValueError("EmitTriples node needs an emitter")
+        table = run(node.input)
+        joins = {i: run(j) for i, j in node.joins}
+        out = emitter.emit_triples(node.tm, table, joins)
+    else:
+        raise TypeError(f"cannot execute node {type(node).__name__}")
+    memo[node] = out
+    return out
+
+
+def compile_plan(plan: LogicalPlan, emitter, engine: str = "rmlmapper",
+                 dedup: Optional[str] = None,
+                 caps: Optional[Mapping[Node, int]] = None,
+                 report_overflow: bool = False):
+    """Lower the DAG to one ``sources -> (kg, raw)`` closure. ``"sdm"``
+    deduplicates each map's output as it is produced, ``"rmlmapper"`` only
+    at the sink; the sink δ runs in either mode. ``raw`` is the engine's
+    materialized triple count before the sink δ.
+
+    Capacities in ``caps`` are sized for the planning-time extension; on
+    extensions where more rows survive a node than planned, the node is
+    truncated. With ``report_overflow=True`` the closure returns ``(kg,
+    raw, overflowed)`` where ``overflowed`` is a 0-d bool — True iff any
+    capped node was truncated — so ``KGEngine`` can rebuild and re-run
+    instead of returning a truncated KG.
+
+    The engine/sink semantics (per-map δ under sdm, δδ = δ for a single
+    map, sink δ) stay in lockstep with :meth:`LogicalPlan.sink`."""
+    emit_nodes = plan.emits()
+
+    def fn(sources: Mapping[str, Table]):
+        memo: Dict[Node, Table] = {}
+        flags: Optional[List[torch.Tensor]] = [] if report_overflow else None
+        per_map = [execute_node(e, sources, memo, emitter, dedup, caps,
+                                flags)
+                   for e in emit_nodes]
+        if engine == "sdm":
+            per_map = [distinct(t, dedup=dedup) for t in per_map]
+        raw = torch.stack([t.count for t in per_map]).sum(dtype=torch.int32)
+
+        def done(kg: Table):
+            if not report_overflow:
+                return kg, raw
+            over = (torch.any(torch.stack(flags)) if flags
+                    else torch.zeros((), dtype=torch.bool,
+                                     device=raw.device))
+            return kg, raw, over
+
+        if engine == "sdm" and len(per_map) == 1:
+            return done(per_map[0])     # δδ = δ: per-map δ IS the sink δ
+        data = torch.cat([t.data for t in per_map], dim=0)
+        mask = torch.cat([t.valid_mask for t in per_map])
+        data, count = compact(data, mask)
+        merged = Table(data=data, count=count, attrs=per_map[0].attrs)
+        return done(distinct(merged, dedup=dedup))
+
+    return fn
+
+
+def input_names(plan: LogicalPlan) -> Dict[str, str]:
+    """Deterministic materialization name per map: Rule-3 merges keep their
+    recorded ``merged_*`` label, δπ(σ) chains derive ``src__pi_attrs`` (+
+    ``__sigma``), untouched scans keep the source name."""
+    names: Dict[str, str] = {}
+    node_name: Dict[Node, str] = {}
+    used: Dict[str, Node] = {}
+    for tm in plan.maps:
+        node = plan.inputs[tm.name]
+        if node in node_name:
+            names[tm.name] = node_name[node]
+            continue
+        if isinstance(node, Scan):
+            name = node.source
+        elif node in plan.names:
+            name = plan.names[node]
+        else:
+            scans = sorted({n.source for n in iter_nodes(node)
+                            if isinstance(n, Scan)})
+            base = scans[0] if len(scans) == 1 else "plan"
+            name = f"{base}__pi_" + "_".join(node.attrs)
+            if any(isinstance(n, Select) for n in iter_nodes(node)):
+                name += "__sigma"
+        k, candidate = 0, name
+        while candidate in used and used[candidate] != node:
+            k += 1
+            candidate = f"{name}_{k}"
+        used[candidate] = node
+        node_name[node] = candidate
+        names[tm.name] = candidate
+    return names
