@@ -11,12 +11,7 @@ no result):
 1. Require a CUDA card; print ``nvidia-smi``'s name and power limit; build
    the hand-written kernels (``src/repro_torch/kernels/csrc/*.cu``, nvcc
    for sm_90a, at first use) and print the build time.
-2. Every kernel against its plain PyTorch version on the card, bit for bit
-   (tolerance 0: integer code), at the main path's shapes (N = 2**20 rows,
-   K = 5 and K = 10) and at the edge cases; then CUDA-event timings
-   (warm-up, median of 25) of each kernel and its plain version at
-   N = 2**20, K = 5, beside the bound the card's memory rate sets.
-3. The main path at a real size: ``KGEngine(...).create_kg()`` cold and
+2. The main path at a real size: ``KGEngine(...).create_kg()`` cold and
    warm, one ``ingest`` inside the capacity buckets (0 recompiles) and one
    that crosses a bucket (exactly 1), for the paper's group-B DIS at
    1,000,000 rows per source (redundancy 0.75) and its group-A DIS at
@@ -25,8 +20,18 @@ no result):
    references: the KG must equal the CPU ``dedup="lex"`` path's (which
    launches no kernel) as a set, and the CPU ``dedup="hash"`` path's (the
    kernels' plain versions) bit for bit, row order included, with equal
-   raw counts and recompiles. Every kernel's launch count must have risen
-   during the card's run.
+   raw counts and recompiles. The hash δ calls per (layout, capacity, K)
+   and the exact fallbacks they took (collision, radix overflow, PAD
+   merge) must equal the CPU hash path's, so a wrong kernel flag cannot
+   hide behind a fallback whose output is identical. Every kernel's
+   launch count must have risen during the card's run.
+3. Every kernel against its plain PyTorch version on the card, bit for bit
+   (tolerance 0: integer code), at N = 2**20 rows for K = 1, 2, 5 and 10,
+   at every (capacity, K) the main path handed the hash δ, and at the
+   edge cases. Then the device time of each kernel and its plain version
+   (CUDA events around back-to-back calls queued behind a sleep kernel,
+   over input copies that together exceed the L2 cache), beside the bound
+   the card's memory and integer rates set.
 4. A ``{"kernels": [...]}`` JSON line, then as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -47,9 +52,18 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 #: fp32 instructions/s; Hopper issues int32 at half the fp32 lane rate)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 16.7e12
+#: the H100's L2 cache; timed inputs are spread over copies that together
+#: hold at least twice this, so every call reads its input from HBM
+L2_BYTES = 50 * 2**20
+#: the sleep kernel's cycles per second (the H100 SXM's top SM clock; a
+#: lower clock only lengthens the sleep)
+SLEEP_CYCLES_PER_S = 1.98e9
 
 N_MAIN = 1 << 20
-TIMING_REPS = 25
+CHECK_KS = (1, 2, 5, 10)
+#: timing: trials (the median is kept) of back-to-back calls each
+TIMING_TRIALS = 5
+TIMING_CALLS = {"kernel": 20, "plain": 10}
 #: main-path DIS sizes (rows per source) and the two ingests as fractions
 #: of them: the first stays inside every capacity bucket, the second
 #: crosses one
@@ -97,104 +111,6 @@ def card_line() -> str:
 
 # ---------------------------------------------------------------------------
 # phase 2
-# ---------------------------------------------------------------------------
-
-def time_ms(torch, fn) -> float:
-    """Median CUDA-event time of one call, after a warm-up."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(TIMING_REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop))
-    return statistics.median(times)
-
-
-def max_abs_err(torch, case) -> float:
-    got, want = case.kernel_fn(), case.plain_fn()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    err = 0.0
-    for g, w in zip(got, want):
-        diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
-        err = max(err, float(diff.max().item()) if diff.numel() else 0.0)
-    return err
-
-
-def kernel_phase(torch, dev):
-    import numpy as np
-    from repro_torch.kernels import selfcheck
-    from repro_torch.kernels.radix_partition import (radix_partition_kernel,
-                                                     radix_partition_ref)
-    from repro_torch.kernels.rowhash import (hash_neighbor_flags_kernel,
-                                             hash_neighbor_flags_ref,
-                                             rowhash_kernel, rowhash_ref)
-    from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
-
-    errs = {name: 0.0 for name in KERNELS}
-    bad = {name: 0 for name in KERNELS}
-    cases = selfcheck.cases(dev, N_MAIN, ks=(5, 10))
-    for case in cases:
-        n_bad = selfcheck.mismatches(case)
-        bad[case.kernel] += n_bad
-        errs[case.kernel] = max(errs[case.kernel], max_abs_err(torch, case))
-        log(f"check {case.kernel:20s} {case.label:45s} mismatches {n_bad}")
-    check(not any(bad.values()), f"kernel/plain mismatches: {bad}")
-    check({c.kernel for c in cases} == set(KERNELS), "a kernel has no case")
-
-    rng = np.random.default_rng(1)
-    results = {}
-    for k in (5, 10):
-        rows = rng.integers(0, N_MAIN // 4, (N_MAIN, k)).astype(np.int32)
-        x = torch.from_numpy(rows).to(dev)
-        hs = rowhash_ref(x.cpu()).numpy()
-        xs = torch.from_numpy(rows[np.argsort(hs, kind="stable")]).to(dev)
-        nb = RADIX_DEDUP_BUCKETS
-        cb = _radix_dedup_cap(N_MAIN, nb)
-        cnt = torch.tensor(N_MAIN, dtype=torch.int32, device=dev)
-        n, word = N_MAIN, 4
-        ops_hash = n * (11 * k + 8)
-        work = {
-            "rowhash": (lambda: rowhash_kernel(x), lambda: rowhash_ref(x),
-                        n * k * word + n * 8, ops_hash),
-            "hash_neighbor_flags": (
-                lambda: hash_neighbor_flags_kernel(xs),
-                lambda: hash_neighbor_flags_ref(xs),
-                n * k * word + n * (8 + 4 + 4), ops_hash + n * (2 * k + 4)),
-            "radix_partition": (
-                lambda: radix_partition_kernel(
-                    x, cnt, n_buckets=nb, cap_bucket=cb,
-                    order_preserving=True),
-                lambda: radix_partition_ref(
-                    x, cnt, n_buckets=nb, cap_bucket=cb,
-                    order_preserving=True),
-                n * k * word + 4 + nb * cb * k * word + nb * 4 + 1,
-                ops_hash + n * 8),
-        }
-        for name, (kern, plain, nbytes, nops) in work.items():
-            ms = time_ms(torch, kern)
-            plain_ms = time_ms(torch, plain)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = nops / INT32_OPS_PER_S * 1e3
-            results[(name, k)] = {
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": nbytes, "ops": nops}
-            log(f"time {name:20s} N={n} K={k:2d} kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f}"
-                f" ms ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
-    return errs, bad, results
-
-
-# ---------------------------------------------------------------------------
-# phase 3
 # ---------------------------------------------------------------------------
 
 def group_a_records(n_rows: int, n_distinct: int, seed: int, attr: str,
@@ -251,14 +167,18 @@ STEPS = ("create_kg cold", "create_kg warm", "ingest in bucket",
 
 def run_session(torch, dis, engine, dedup, device, deltas):
     """The four main-path steps; per step the KG codes, counts,
-    recompiles, wall seconds and counted host syncs."""
+    recompiles, wall seconds, counted host syncs, and the hash δ calls
+    and fallbacks."""
     from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
     from repro_torch.relalg import count_transfers
+    from repro_torch.relalg.ops import (hash_dedup_counts,
+                                        reset_hash_dedup_counts)
     clear_plan_cache()
     eng = KGEngine(dis, config=EngineConfig(engine=engine, dedup=dedup),
                    device=device)
     out = []
     for step, delta in zip(STEPS, (None, None) + tuple(deltas)):
+        reset_hash_dedup_counts()
         with count_transfers() as ledger:
             t0 = time.perf_counter()
             kg, stats = (eng.create_kg() if delta is None
@@ -270,11 +190,14 @@ def run_session(torch, dis, engine, dedup, device, deltas):
                     "raw": stats["raw_triples"], "kg": stats["kg_triples"],
                     "recompiles": stats["recompiles"],
                     "cache_hit": stats["plan_cache_hit"], "seconds": secs,
-                    "host_syncs": ledger.device_to_host})
+                    "host_syncs": ledger.device_to_host,
+                    "dedup": hash_dedup_counts()})
     return out
 
 
-def main_path_phase(torch, dev, require_launches: bool = True):
+def main_path_phase(torch, dev):
+    """Returns the launch counts of the card's run and the (capacity, K)
+    shapes it handed the hash δ."""
     import numpy as np
     from repro_torch.kernels import launch_counts, reset_launch_counts
     workloads = build_workloads()
@@ -286,44 +209,48 @@ def main_path_phase(torch, dev, require_launches: bool = True):
 
     # the card's run of the main path, between a reset and a read of the
     # launch counts
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     reset_launch_counts()
     gpu = {}
     for name, dis, engine, deltas in runs:
         gpu[(name, engine)] = run_session(torch, dis, engine, "hash", dev,
                                           deltas)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     launches = launch_counts()
     log(f"main path launches: {json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()) or not require_launches,
+    check(all(v > 0 for v in launches.values()),
           f"a kernel was not launched on the main path: {launches}")
 
     # the references, on the CPU (no kernel launches there)
+    shapes = set()
     for name, dis, engine, deltas in runs:
         lex = run_session(torch, dis, engine, "lex", "cpu", deltas)
         plain = run_session(torch, dis, engine, "hash", "cpu", deltas)
         vocab = len(dis.vocab)
         for g, lx, pl in zip(gpu[(name, engine)], lex, plain):
+            where = f"{name} {engine} {g['step']}"
             codes = g["codes"]
             check(codes.ndim == 2 and codes.shape == (g["kg"], 5) and
-                  g["kg"] > 0, f"{name} {engine} {g['step']}: bad KG shape")
+                  g["kg"] > 0, f"{where}: bad KG shape")
             check(int(codes[:, [1, 2, 4]].min()) >= 0 and
                   int(codes[:, [1, 2, 4]].max()) < vocab,
-                  f"{name} {engine} {g['step']}: codes outside the vocab")
+                  f"{where}: codes outside the vocab")
             check(np.array_equal(codes, pl["codes"]),
-                  f"{name} {engine} {g['step']}: KG differs from the CPU "
-                  "hash path (plain versions)")
+                  f"{where}: KG differs from the CPU hash path (plain "
+                  "versions)")
             order = np.lexsort(codes.T[::-1])
             lorder = np.lexsort(lx["codes"].T[::-1])
             check(np.array_equal(codes[order], lx["codes"][lorder]),
-                  f"{name} {engine} {g['step']}: KG differs from the CPU "
-                  "lex path")
+                  f"{where}: KG differs from the CPU lex path")
             for key in ("raw", "kg", "recompiles"):
                 check(g[key] == lx[key] == pl[key],
-                      f"{name} {engine} {g['step']}: {key} {g[key]} vs "
-                      f"lex {lx[key]} vs plain {pl[key]}")
+                      f"{where}: {key} {g[key]} vs lex {lx[key]} vs plain "
+                      f"{pl[key]}")
+            check(g["dedup"] == pl["dedup"],
+                  f"{where}: hash δ calls or fallbacks on the card "
+                  f"{g['dedup']} differ from the CPU hash path's "
+                  f"{pl['dedup']}")
+            shapes.update((cap, k) for _layout, cap, k in g["dedup"]["calls"])
         steps = gpu[(name, engine)]
         check(steps[1]["cache_hit"] and steps[1]["recompiles"] == 0,
               f"{name} {engine}: warm create_kg rebuilt")
@@ -333,12 +260,155 @@ def main_path_phase(torch, dev, require_launches: bool = True):
               f"{name} {engine}: bucket crossing cost "
               f"{steps[3]['recompiles']} recompiles, expected 1")
         for s in steps:
+            calls = sum(s["dedup"]["calls"].values())
             log(f"main {name:12s} {engine:9s} {s['step']:17s} "
                 f"{s['seconds']:8.3f} s  {s['kg'] / s['seconds']:12.0f} "
                 f"KG triples/s  kg {s['kg']}  raw {s['raw']}  "
                 f"recompiles {s['recompiles']}  host syncs "
-                f"{s['host_syncs']}  == cpu lex, == cpu plain")
-    return launches, gpu
+                f"{s['host_syncs']}  hash δ calls {calls} fallbacks "
+                f"{json.dumps(s['dedup']['fallbacks'])}  == cpu lex, "
+                "== cpu plain")
+    shapes = sorted(shapes, key=lambda s: (s[1], s[0]))
+    log(f"hash δ shapes (capacity, K) on the main path: {shapes}")
+    return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 3
+# ---------------------------------------------------------------------------
+
+def device_ms(torch, calls, n_calls: int):
+    """Device milliseconds per call, and whether the host kept up.
+
+    ``calls`` are thunks over distinct input copies, taken in turn. Each
+    trial queues ``n_calls`` back-to-back calls behind a sleep kernel that
+    outlasts the host's enqueueing, so the events around them time the
+    device alone; the median trial is kept. ``host_bound`` is True when
+    the host took longer to enqueue than the sleep lasted (the device may
+    then have idled between calls, and the time is an upper bound).
+    """
+    for fn in calls:                      # warm-up
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_calls):
+        calls[i % len(calls)]()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = int(max(1e-3, 3 * enqueue_s) * SLEEP_CYCLES_PER_S)
+    trials, host_bound = [], False
+    for _ in range(TIMING_TRIALS):
+        slept = torch.cuda.Event(enable_timing=True)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for i in range(n_calls):
+            calls[i % len(calls)]()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        stop.synchronize()
+        host_bound |= host_ms > slept.elapsed_time(start)
+        trials.append(start.elapsed_time(stop) / n_calls)
+    return statistics.median(trials), host_bound
+
+
+def max_abs_err(torch, case) -> float:
+    got, want = case.kernel_fn(), case.plain_fn()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        diff = (g.to(torch.int64) - w.to(torch.int64)).abs()
+        err = max(err, float(diff.max().item()) if diff.numel() else 0.0)
+    return err
+
+
+def timing_work(torch, dev, n: int, k: int):
+    """Per kernel: thunks over input copies for the kernel and its plain
+    version, and the bytes and operations the function needs (the
+    reference's 4-byte hash output, though the port writes it as int64)."""
+    import numpy as np
+    from repro_torch.kernels.radix_partition import (radix_partition_kernel,
+                                                     radix_partition_ref)
+    from repro_torch.kernels.rowhash import (hash_neighbor_flags_kernel,
+                                             hash_neighbor_flags_ref,
+                                             rowhash_kernel, rowhash_ref)
+    from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
+    rng = np.random.default_rng(1)
+    rows = rng.integers(0, max(2, n // 4), (n, k)).astype(np.int32)
+    hs = rowhash_ref(torch.from_numpy(rows)).numpy()
+    word = 4
+    copies = min(64, max(2, -(-2 * L2_BYTES // (n * k * word))))
+    x = [torch.from_numpy(rows).to(dev) for _ in range(copies)]
+    xs = [torch.from_numpy(rows[np.argsort(hs, kind="stable")]).to(dev)
+          for _ in range(copies)]
+    nb = RADIX_DEDUP_BUCKETS
+    cb = _radix_dedup_cap(n, nb)
+    cnt = torch.tensor(n, dtype=torch.int32, device=dev)
+    kw = dict(n_buckets=nb, cap_bucket=cb, order_preserving=True)
+    ops_hash = n * (11 * k + 8)
+    return {
+        "rowhash": ([lambda t=t: rowhash_kernel(t) for t in x],
+                    [lambda t=t: rowhash_ref(t) for t in x],
+                    n * k * word + n * word, ops_hash),
+        "hash_neighbor_flags": (
+            [lambda t=t: hash_neighbor_flags_kernel(t) for t in xs],
+            [lambda t=t: hash_neighbor_flags_ref(t) for t in xs],
+            n * k * word + n * 3 * word, ops_hash + n * (2 * k + 4)),
+        "radix_partition": (
+            [lambda t=t: radix_partition_kernel(t, cnt, **kw) for t in x],
+            [lambda t=t: radix_partition_ref(t, cnt, **kw) for t in x],
+            n * k * word + word + nb * cb * k * word + nb * word + 1,
+            ops_hash + n * 8),
+    }
+
+
+def kernel_phase(torch, dev, path_shapes):
+    from repro_torch.kernels import selfcheck
+
+    errs = {name: 0.0 for name in KERNELS}
+    bad = {name: 0 for name in KERNELS}
+    cases = selfcheck.cases(dev, N_MAIN, ks=CHECK_KS,
+                            path_shapes=path_shapes)
+    for case in cases:
+        n_bad = selfcheck.mismatches(case)
+        bad[case.kernel] += n_bad
+        errs[case.kernel] = max(errs[case.kernel], max_abs_err(torch, case))
+        log(f"check {case.kernel:20s} {case.label:50s} mismatches {n_bad}")
+    check(not any(bad.values()), f"kernel/plain mismatches: {bad}")
+    check({c.kernel for c in cases} == set(KERNELS), "a kernel has no case")
+
+    # time N = 2**20 at K = 5 and 10, and the largest δ input of each width
+    # the main path had
+    largest = {}
+    for n, k in path_shapes:
+        largest[k] = max(largest.get(k, 0), n)
+    shapes = sorted({(N_MAIN, 5), (N_MAIN, 10)} |
+                    {(n, k) for k, n in largest.items()})
+    results = {}
+    for n, k in shapes:
+        for name, (kern, plain, nbytes, nops) in timing_work(
+                torch, dev, n, k).items():
+            ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
+            plain_ms, p_host = device_ms(torch, plain, TIMING_CALLS["plain"])
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = nops / INT32_OPS_PER_S * 1e3
+            bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            results[(name, n, k)] = {
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
+                "host_bound": k_host, "plain_host_bound": p_host}
+            log(f"time {name:20s} N={n:8d} K={k:2d} kernel {ms:.4f} ms  "
+                f"plain {plain_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f}"
+                f" ms ({bound_by})  host-bound kernel {k_host} plain "
+                f"{p_host}")
+    # the kernels line reports the sink δ's width (5-column triples) at
+    # its largest main-path input
+    report = (largest[5], 5) if 5 in largest else (N_MAIN, 5)
+    return errs, bad, results, report
 
 
 # ---------------------------------------------------------------------------
@@ -367,25 +437,23 @@ def main() -> int:
         _lib.lib()
         log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
             f"(nvcc {_lib.last_build_seconds:.2f} s)")
-        errs, bad, times = kernel_phase(torch, dev)
-        launches, _gpu = main_path_phase(torch, dev)
+        launches, path_shapes = main_path_phase(torch, dev)
+        errs, bad, times, (n_rep, k_rep) = kernel_phase(torch, dev,
+                                                        path_shapes)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        t = times[(name, 5)]
+        t = times[(name, n_rep, k_rep)]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": f"N={N_MAIN} K=5"})
-    k10 = {name: {key: times[(name, 10)][key]
-                  for key in ("ms", "plain_ms", "bound_ms")}
-           for name in KERNELS}
-    log(f"kernel times at N={N_MAIN} K=10: {json.dumps(k10)}")
+            "library_ms": None, "host_bound": t["host_bound"],
+            "shape": f"N={n_rep} K={k_rep}"})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -9,12 +9,13 @@ Inputs come from ``numpy.random.default_rng(seed)``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.relalg.guard import host_int
+from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
 
 from .radix_partition.kernel import radix_partition_kernel
 from .radix_partition.ref import PAD_ID, radix_partition_ref
@@ -58,9 +59,13 @@ def _tuple(x) -> Tuple[torch.Tensor, ...]:
 
 
 def cases(device: torch.device, n_main: int, ks=(5, 10),
+          path_shapes: Sequence[Tuple[int, int]] = (),
           seed: int = 0) -> List[Case]:
-    """Every kernel at the main path's shapes (``n_main`` rows, each K in
-    ``ks``) and at the edge cases: N not a multiple of the block, count <
+    """Every kernel at the main path's shapes and at the edge cases.
+
+    ``n_main`` rows at each K in ``ks``, and each ``(capacity, K)`` in
+    ``path_shapes`` (the shapes a run handed the hash δ), each with the δ's
+    own radix bucket capacity; then N not a multiple of the block, count <
     N, N = 1, every row in one bucket, rows whose content is all PAD, and
     real 32-bit collisions for the neighbour flags."""
     rng = np.random.default_rng(seed)
@@ -90,6 +95,7 @@ def cases(device: torch.device, n_main: int, ks=(5, 10),
                         lambda: radix_partition_kernel(t, c, **kw),
                         lambda: radix_partition_ref(t, c, **kw)))
 
+    nb = RADIX_DEDUP_BUCKETS
     odd = n_main - n_main // 7 + 3          # not a multiple of 256
     for k in ks:
         main = _rows(rng, n_main, k, hi=n_main // 4)   # duplicate-heavy
@@ -101,13 +107,23 @@ def cases(device: torch.device, n_main: int, ks=(5, 10),
                   _hash_sorted(_rows(rng, n_main, k, hi=16)))
         add_flags(f"N={odd} K={k}", _hash_sorted(main[:odd]))
         add_flags(f"count<N K={k}", _hash_sorted(masked))
-        cb = max(8, int(-(-(n_main / 8 + 6 * (n_main / 8) ** 0.5 + 8) // 1)))
-        add_radix(f"N={n_main} K={k} nb=8", main, n_main, 8, cb)
-        add_radix(f"N={odd} K={k} nb=8", main[:odd], odd, 8, cb)
-        add_radix(f"count<N K={k} nb=8", main, n_main - n_main // 3, 8, cb)
-        add_radix(f"N={n_main} K={k} nb=64 exchange key_cols=(1,0)", main,
-                  n_main, 64, n_main // 32, key_cols=(1, 0),
+        cb = _radix_dedup_cap(n_main, nb)
+        add_radix(f"N={n_main} K={k} nb={nb}", main, n_main, nb, cb)
+        add_radix(f"N={odd} K={k} nb={nb}", main[:odd], odd, nb, cb)
+        add_radix(f"count<N K={k} nb={nb}", main, n_main - n_main // 3, nb,
+                  cb)
+        key_cols = (1, 0) if k > 1 else (0,)
+        add_radix(f"N={n_main} K={k} nb=64 exchange key_cols={key_cols}",
+                  main, n_main, 64, n_main // 32, key_cols=key_cols,
                   order_preserving=False)
+    for n, k in path_shapes:
+        rows = _rows(rng, n, k, hi=max(2, n // 4))
+        count = n - n // 3
+        add_hash(f"path N={n} K={k}", rows)
+        add_flags(f"path N={n} K={k} hash-sorted",
+                  _hash_sorted(_pad_tail(rows, count)))
+        add_radix(f"path N={n} K={k} count={count} nb={nb}", rows, count,
+                  nb, _radix_dedup_cap(n, nb))
     one = _rows(rng, 1, 5)
     add_hash("N=1", one)
     add_flags("N=1", one)

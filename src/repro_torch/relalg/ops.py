@@ -26,7 +26,8 @@ the read is counted) and runs only the branch it needs.
 """
 from __future__ import annotations
 
-from typing import Callable, Mapping, Optional, Sequence, Tuple
+from collections import Counter
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -46,6 +47,25 @@ RADIX_DEDUP_MIN_ROWS = 4096
 RADIX_DEDUP_BUCKETS = 8
 
 _UINT32_MAX = 0xFFFFFFFF
+
+# Hash-δ bookkeeping since the last reset: calls per (layout, capacity, K),
+# and the exact fallbacks taken, per trigger. The same run on the card and
+# on the CPU must agree on both (the kernels' flags equal the plain ones).
+_HASH_DEDUP_CALLS: Counter = Counter()
+_HASH_DEDUP_FALLBACKS: Counter = Counter()
+_RADIX_TRIGGERS = ("radix_overflow", "radix_collision", "radix_pad_merge")
+
+
+def hash_dedup_counts() -> Dict[str, dict]:
+    """``{"calls": {(layout, capacity, K): n}, "fallbacks": {trigger:
+    n}}`` since the last :func:`reset_hash_dedup_counts`."""
+    return {"calls": dict(_HASH_DEDUP_CALLS),
+            "fallbacks": dict(_HASH_DEDUP_FALLBACKS)}
+
+
+def reset_hash_dedup_counts() -> None:
+    _HASH_DEDUP_CALLS.clear()
+    _HASH_DEDUP_FALLBACKS.clear()
 
 
 def _resolve_dedup(dedup: Optional[str]) -> str:
@@ -224,6 +244,7 @@ def _distinct_hashed_sorted(data: torch.Tensor, count, *,
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-global-sort layout of the hash δ."""
     capacity = data.shape[0]
+    _HASH_DEDUP_CALLS["sorted", capacity, data.shape[1]] += 1
     idx = torch.arange(capacity, dtype=torch.int32, device=data.device)
     valid_in = idx < count
     masked = torch.where(valid_in[:, None], data, _pad_like(data))
@@ -253,6 +274,7 @@ def _distinct_hashed_sorted(data: torch.Tensor, count, *,
 
     collision = torch.any(coll_raw & valid_s & _prev_valid(valid_s))
     if host_int(collision):
+        _HASH_DEDUP_FALLBACKS["sorted_collision"] += 1
         return distinct_rows(data, count)
     return compact(rows, keep_raw & valid_s)
 
@@ -279,6 +301,7 @@ def _distinct_hashed_radix(data: torch.Tensor, count
     sorted layout (identical output, just slower).
     """
     capacity, k = data.shape
+    _HASH_DEDUP_CALLS["radix", capacity, k] += 1
     nb = RADIX_DEDUP_BUCKETS
     cb = _radix_dedup_cap(capacity, nb)
     buckets, counts, overflow = radix_partition(
@@ -302,7 +325,14 @@ def _distinct_hashed_radix(data: torch.Tensor, count
     prev_valid = _prev_valid(valid_s)
     collision = torch.any(coll_raw & valid_s & prev_valid)
     pad_merge = torch.any(~keep_raw & valid_s & ~prev_valid)
-    if host_int(overflow | collision | pad_merge):
+    # one host read for the three triggers, packed one bit each
+    fell_back = host_int(overflow.to(torch.int32)
+                         | collision.to(torch.int32) << 1
+                         | pad_merge.to(torch.int32) << 2)
+    if fell_back:
+        for bit, trigger in enumerate(_RADIX_TRIGGERS):
+            if fell_back >> bit & 1:
+                _HASH_DEDUP_FALLBACKS[trigger] += 1
         return _distinct_hashed_sorted(data, count)
     out, n = compact(rows, keep_raw & valid_s)
     # the δ output fits the input capacity and compact fronts the kept

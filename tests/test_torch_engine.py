@@ -16,19 +16,16 @@ import torch
 
 import repro.api as JA
 import repro_torch.api as TA
-from torch_parity import deltas, dises, extension_records, same_step, \
-    sessions
+from torch_parity import deltas, dises, extension_records, \
+    isolated_plan_caches, same_step, sessions
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
 def _isolate_plan_caches():
-    JA.clear_plan_cache()
-    TA.clear_plan_cache()
-    yield
-    JA.clear_plan_cache()
-    TA.clear_plan_cache()
+    with isolated_plan_caches():
+        yield
 
 
 @pytest.mark.parametrize("dedup", ["lex", "hash"])

@@ -21,11 +21,13 @@ import pytest
 import torch
 
 import repro.api as JA
+import repro.data.synthetic as JS
 import repro_torch.api as TA
 import repro_torch.core as TC
 import repro_torch.data.synthetic as TS
 from repro_torch.device import NoCUDADeviceError, resolve_device
 from repro_torch.relalg import Table, forbid_transfers
+from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
 
@@ -35,11 +37,8 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 
 @pytest.fixture(autouse=True)
 def _isolate_plan_caches():
-    JA.clear_plan_cache()
-    TA.clear_plan_cache()
-    yield
-    JA.clear_plan_cache()
-    TA.clear_plan_cache()
+    with isolated_plan_caches():
+        yield
 
 
 def _port_files():
@@ -85,7 +84,25 @@ def test_port_tests_leave_process_state_alone():
             assert banned not in src or name == "test_torch_guards.py", \
                 (name, banned)
         assert "torch.set_num_threads(1)" in src, name
-        assert "clear_plan_cache()" in src, name
+        assert "with isolated_plan_caches():" in src, name
+
+
+def test_plan_cache_isolation_puts_the_reference_cache_back():
+    # what a reference test that ran earlier in the worker left behind
+    JA.PLAN_CACHE.put(("earlier",), "entry")
+    JA.PLAN_CACHE.get(("earlier",))
+    JA.PLAN_CACHE.get(("missing",))
+    before = (list(JA.PLAN_CACHE._entries.items()), JA.PLAN_CACHE.hits,
+              JA.PLAN_CACHE.misses)
+    with isolated_plan_caches():
+        assert len(JA.PLAN_CACHE) == 0 and JA.PLAN_CACHE.misses == 0
+        JA.KGEngine(JS.make_group_b_dis(24, 0.6, seed=0)).create_kg()
+        TA.KGEngine(TS.make_group_b_dis(24, 0.6, seed=0, device="cpu"),
+                    device="cpu").create_kg()
+        assert len(JA.PLAN_CACHE) == 1 and len(TA.PLAN_CACHE) == 1
+    assert (list(JA.PLAN_CACHE._entries.items()), JA.PLAN_CACHE.hits,
+            JA.PLAN_CACHE.misses) == before
+    assert len(TA.PLAN_CACHE) == 0
 
 
 def test_importing_the_port_builds_and_starts_nothing():

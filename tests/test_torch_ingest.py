@@ -21,18 +21,16 @@ import repro.data.synthetic as JS
 import repro_torch.api as TA
 import repro_torch.core as TC
 import repro_torch.data.synthetic as TS
-from torch_parity import deltas, dises, same_step, sessions
+from torch_parity import deltas, dises, isolated_plan_caches, same_step, \
+    sessions
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
 def _isolate_plan_caches():
-    JA.clear_plan_cache()
-    TA.clear_plan_cache()
-    yield
-    JA.clear_plan_cache()
-    TA.clear_plan_cache()
+    with isolated_plan_caches():
+        yield
 
 
 @pytest.mark.parametrize("factor,seed,engine,dedup,both", [

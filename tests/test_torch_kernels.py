@@ -11,7 +11,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.api import clear_plan_cache
 from repro.kernels.radix_partition import (radix_partition_pallas,
                                            radix_partition_ref as j_radix_ref)
 from repro.kernels.rowhash.ref import (hash_neighbor_flags_ref as j_flags_ref,
@@ -19,7 +18,6 @@ from repro.kernels.rowhash.ref import (hash_neighbor_flags_ref as j_flags_ref,
 from repro.kernels.rowhash.rowhash import (hash_neighbor_flags_pallas,
                                            rowhash_pallas)
 from repro.relalg.encoding import PAD_ID as J_PAD_ID
-from repro_torch.api import clear_plan_cache as clear_port_plan_cache
 from repro_torch.kernels import (launch_counts, reset_launch_counts,
                                  resolve_use_kernel)
 from repro_torch.kernels.radix_partition import (bucket_shift,
@@ -33,17 +31,15 @@ from repro_torch.kernels.rowhash import (hash_neighbor_flags,
                                          hash_neighbor_flags_ref, rowhash,
                                          rowhash_kernel, rowhash_ref)
 from repro_torch.relalg import PAD_ID
+from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
 def _isolate_plan_caches():
-    clear_plan_cache()
-    clear_port_plan_cache()
-    yield
-    clear_plan_cache()
-    clear_port_plan_cache()
+    with isolated_plan_caches():
+        yield
 
 
 def _rows(n, k, seed=0, lo=0, hi=1 << 20):
@@ -246,6 +242,26 @@ def test_kernel_wrappers_raise_on_cpu_tensors():
     assert resolve_use_kernel(x, False) is False
 
 
+def test_selfcheck_cases_cover_every_width_and_run_plain():
+    # the card's kernel-versus-plain cases, built on the CPU: every width
+    # and main-path shape appears, and each plain version runs (a case
+    # asking for a column the rows lack would raise here)
+    from repro_torch.kernels import selfcheck
+    path = [(4096, 1), (6144, 2), (8192, 5)]
+    cases = selfcheck.cases(torch.device("cpu"), n_main=3000,
+                            ks=(1, 2, 5, 10), path_shapes=path)
+    labels = {c.kernel + " " + c.label for c in cases}
+    for name in ("rowhash", "hash_neighbor_flags"):
+        for k in (1, 2, 5, 10):
+            assert any(lb.startswith(f"{name} N=3000 K={k}")
+                       for lb in labels), (name, k)
+    for n, k in path:
+        assert f"radix_partition path N={n} K={k} count={n - n // 3} nb=8" \
+            in labels
+    for c in cases:
+        c.plain_fn()
+
+
 # ---------------------------------------------------------------------------
 # on the card: the CUDA kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -259,7 +275,8 @@ def cuda_device():
 
 def test_cuda_kernels_match_plain_versions(cuda_device):
     from repro_torch.kernels import selfcheck
-    cases = selfcheck.cases(cuda_device, n_main=5000)
+    cases = selfcheck.cases(cuda_device, n_main=5000, ks=(1, 2, 5, 10),
+                            path_shapes=[(4096, 1), (6144, 2), (8192, 5)])
     bad = {c.kernel + " " + c.label: selfcheck.mismatches(c)
            for c in cases}
     assert not any(bad.values()), bad

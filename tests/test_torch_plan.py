@@ -16,16 +16,15 @@ import torch
 import repro.core as JC
 import repro.data.synthetic as JS
 import repro.plan as JP
-from repro.api import clear_plan_cache
 from repro.core.rml import triple_map_to_json
 from repro.relalg import bucket_cap as j_bucket_cap, \
     round_cap as j_round_cap
 import repro_torch.core as TC
 import repro_torch.data.synthetic as TS
 import repro_torch.plan as TP
-from repro_torch.api import clear_plan_cache as clear_port_plan_cache
 from repro_torch.relalg import bucket_cap as t_bucket_cap, \
     round_cap as t_round_cap
+from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
 
@@ -69,11 +68,8 @@ SIGMA_SPEC = {
 
 @pytest.fixture(autouse=True)
 def _isolate_plan_caches():
-    clear_plan_cache()
-    clear_port_plan_cache()
-    yield
-    clear_plan_cache()
-    clear_port_plan_cache()
+    with isolated_plan_caches():
+        yield
 
 
 def _gene_spec():

@@ -14,13 +14,12 @@ import pytest
 import torch
 
 import repro.relalg as J
-from repro.api import clear_plan_cache
 from repro.relalg import ops as jops
 import repro_torch.relalg as T
-from repro_torch.api import clear_plan_cache as clear_port_plan_cache
 from repro_torch.kernels.radix_partition import radix_partition
 from repro_torch.relalg import ops as tops
 from repro_torch.relalg.guard import count_transfers
+from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
 
@@ -42,11 +41,8 @@ COLLIDING_PAIRS = [
 
 @pytest.fixture(autouse=True)
 def _isolate_plan_caches():
-    clear_plan_cache()
-    clear_port_plan_cache()
-    yield
-    clear_plan_cache()
-    clear_port_plan_cache()
+    with isolated_plan_caches():
+        yield
 
 
 def _rows(n, k, seed=0, hi=1 << 20):
@@ -188,6 +184,50 @@ def test_radix_dedup_bucket_overflow_falls_back():
     assert ledger.device_to_host == 2      # radix flag, then sorted flag
     _same_pair(_j_distinct_rows_hashed(jt.data, jt.count, radix=True),
                (out.data, out.count))
+
+
+def _fallback_case(name):
+    """(rows, attrs, capacity) that send the hash δ down one path."""
+    if name == "sorted_collision":
+        rows = [r for a, b in COLLIDING_PAIRS for r in (a, b, a)]
+        return rows, ["x", "y"], 64
+    if name == "radix_overflow":
+        return (np.repeat(_rows(1, 3, seed=8), 4096, axis=0), ["a", "b", "c"],
+                None)
+    if name == "radix_pad_merge":
+        # one valid all-PAD row, alone and so first in its radix bucket
+        # (bucket 0 is exempt: its first row has no predecessor)
+        pad = np.full((1, 3), T.PAD_ID, dtype=np.int32)
+        rows = _rows(40, 3, seed=4)
+        top = lambda x: tops.rowhash(torch.from_numpy(x)).numpy() >> 29
+        assert top(pad)[0] != 0
+        return (np.concatenate([rows[top(rows) != top(pad)[0]], pad]),
+                ["a", "b", "c"], 4096)
+    return _rows(5000, 5, seed=3, hi=100), list("abcde"), None
+
+
+@pytest.mark.parametrize("name, calls, fallbacks", [
+    ("sorted_collision", {("sorted", 64, 2): 1}, {"sorted_collision": 1}),
+    ("radix_overflow", {("radix", 4096, 3): 1, ("sorted", 4096, 3): 1},
+     {"radix_overflow": 1}),
+    ("radix_pad_merge", {("radix", 4096, 3): 1, ("sorted", 4096, 3): 1},
+     {"radix_pad_merge": 1}),
+    ("none", {("radix", 5000, 5): 1}, {}),
+])
+def test_hash_dedup_counts_record_layouts_and_fallbacks(name, calls,
+                                                        fallbacks):
+    rows, attrs, cap = _fallback_case(name)
+    jt, tt = _tables(rows, attrs, capacity=cap)
+    tops.reset_hash_dedup_counts()
+    with count_transfers() as ledger:
+        out = T.distinct(tt, dedup="hash")
+    got = tops.hash_dedup_counts()
+    assert got == {"calls": calls, "fallbacks": fallbacks}
+    # one counted host read per hash δ call, whatever the trigger
+    assert ledger.device_to_host == sum(calls.values())
+    _same_table(J.distinct(jt, dedup="hash"), out)
+    tops.reset_hash_dedup_counts()
+    assert tops.hash_dedup_counts() == {"calls": {}, "fallbacks": {}}
 
 
 # ---------------------------------------------------------------------------

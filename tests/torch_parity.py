@@ -1,8 +1,14 @@
-"""Shared helpers of the port's engine parity tests
-(``test_torch_engine.py``, ``test_torch_ingest.py``): the same DIS, the
-same extension rows and the same session configuration handed to
+"""Shared helpers of the port's tests.
+
+:func:`isolated_plan_caches` keeps every ``test_torch_*.py`` test out of
+the reference's process-wide plan cache. The rest serves the engine parity
+tests (``test_torch_engine.py``, ``test_torch_ingest.py``): the same DIS,
+the same extension rows and the same session configuration handed to
 ``repro.api.KGEngine`` and ``repro_torch.api.KGEngine`` on the CPU, and an
 exact comparison of what one step returns."""
+import contextlib
+from collections import OrderedDict
+
 import numpy as np
 
 import repro.api as JA
@@ -13,6 +19,27 @@ import repro_torch.api as TA
 import repro_torch.core as TC
 import repro_torch.data.synthetic as TS
 import repro_torch.relalg as TR
+
+
+@contextlib.contextmanager
+def isolated_plan_caches():
+    """Both plan caches empty for the duration; afterwards the reference's
+    cache is put back as it was (entries, their order, hit and miss
+    counts). The xdist workers run the reference's tests in the same
+    process, after these, and some of them count cache misses and
+    recompiles: they must find the cache as if the port's test had not
+    run, neither holding its entries nor emptied by it."""
+    cache = JA.PLAN_CACHE
+    saved = (OrderedDict(cache._entries), cache.hits, cache.misses)
+    JA.clear_plan_cache()
+    TA.clear_plan_cache()
+    try:
+        yield
+    finally:
+        JA.clear_plan_cache()
+        TA.clear_plan_cache()
+        cache._entries.update(saved[0])
+        cache.hits, cache.misses = saved[1], saved[2]
 
 
 def gene_spec(records=None):
