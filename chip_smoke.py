@@ -32,8 +32,23 @@ no result):
    (CUDA events around back-to-back calls queued behind a sleep kernel,
    over input copies that together exceed the L2 cache), beside the bound
    the card's memory and integer rates set.
-4. A ``{"kernels": [...]}`` JSON line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+4. The language-model forward of the ``rwkv`` and ``hybrid`` families,
+   with its own counts: ``make_loss_fn`` of ``rwkv6-7b`` (32 layers) and
+   then ``zamba2-2.7b`` (54 layers) at full width and depth on random
+   weights from a seeded ``torch.Generator`` on the card, B = 2, T = 2048,
+   cold and then warm. Each forward must launch its recurrence kernel
+   exactly once per layer and no other kernel; the loss must be finite
+   and within 1.0 of ln(vocab) (random weights). Prints seconds, tokens/s
+   and peak memory.
+5. The same widths at reduced depth (rwkv6 2 layers, zamba2 6 = one
+   group), T = 40 (not a chunk multiple): the card's logits and loss
+   against the port's CPU plain path on the same weights.
+6. Both recurrence kernels against their plain versions on the card at
+   the forward's shapes and at edge cases (``selfcheck.recurrence_cases``,
+   tolerances stated there), then their device times beside the bound
+   (``recurrence_work``).
+7. A ``{"kernels": [...]}`` JSON line for all five kernels, then as the
+   last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -58,6 +73,11 @@ L2_BYTES = 50 * 2**20
 #: the sleep kernel's cycles per second (the H100 SXM's top SM clock; a
 #: lower clock only lengthens the sleep)
 SLEEP_CYCLES_PER_S = 1.98e9
+#: float32 outside the tensor cores (an FMA counts as two operations), and
+#: the special-function units' exponentials: 16 per SM per clock, 132 SMs,
+#: 1.98 GHz
+FP32_FLOPS_PER_S = 66.9e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 N_MAIN = 1 << 20
 CHECK_KS = (1, 2, 5, 10)
@@ -72,6 +92,19 @@ GROUP_A_ROWS = 200_000
 INGEST_IN_BUCKET = 0.02
 INGEST_CROSSING = {"group_b": 0.06, "group_a": 0.35}
 
+#: language-model forward: the path's batch and sequence; the reduced
+#: depth of the CPU comparison and its sequence; the comparison's
+#: tolerances (bf16 on both sides, rounded per op; accumulation order
+#: differs between cuBLAS and the CPU's kernels): logits within 3% of
+#: their RMS in RMS and 8% of their largest magnitude, loss within 2e-3
+LM_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
+LM_BATCH, LM_SEQ = 2, 2048
+LM_REDUCED_LAYERS = {"rwkv6-7b": 2, "zamba2-2.7b": 6}
+LM_REDUCED_SEQ = 40
+LM_RMS_FRAC, LM_MAX_FRAC, LM_LOSS_ATOL = 0.03, 0.08, 2e-3
+LM_LOSS_BAND = 1.0
+LM_KERNEL = {"rwkv": "rwkv6", "hybrid": "mamba2_ssd"}
+
 KERNELS = {
     "rowhash": ("src/repro_torch/kernels/csrc/rowhash.cu",
                 "src/repro/kernels/rowhash/rowhash.py:52"),
@@ -81,7 +114,12 @@ KERNELS = {
     "radix_partition": (
         "src/repro_torch/kernels/csrc/radix_partition.cu",
         "src/repro/kernels/radix_partition/radix_partition.py:147"),
+    "rwkv6": ("src/repro_torch/kernels/csrc/rwkv6.cu",
+              "src/repro/kernels/rwkv6/rwkv6.py:60"),
+    "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+                   "src/repro/kernels/mamba2/mamba2.py:61"),
 }
+INT_KERNELS = ("rowhash", "hash_neighbor_flags", "radix_partition")
 
 
 class SmokeFailure(RuntimeError):
@@ -218,7 +256,7 @@ def main_path_phase(torch, dev):
     torch.cuda.synchronize()
     launches = launch_counts()
     log(f"main path launches: {json.dumps(launches)}")
-    check(all(v > 0 for v in launches.values()),
+    check(all(launches[k] > 0 for k in INT_KERNELS),
           f"a kernel was not launched on the main path: {launches}")
 
     # the references, on the CPU (no kernel launches there)
@@ -369,8 +407,8 @@ def timing_work(torch, dev, n: int, k: int):
 def kernel_phase(torch, dev, path_shapes):
     from repro_torch.kernels import selfcheck
 
-    errs = {name: 0.0 for name in KERNELS}
-    bad = {name: 0 for name in KERNELS}
+    errs = {name: 0.0 for name in INT_KERNELS}
+    bad = {name: 0 for name in INT_KERNELS}
     cases = selfcheck.cases(dev, N_MAIN, ks=CHECK_KS,
                             path_shapes=path_shapes)
     for case in cases:
@@ -379,7 +417,8 @@ def kernel_phase(torch, dev, path_shapes):
         errs[case.kernel] = max(errs[case.kernel], max_abs_err(torch, case))
         log(f"check {case.kernel:20s} {case.label:50s} mismatches {n_bad}")
     check(not any(bad.values()), f"kernel/plain mismatches: {bad}")
-    check({c.kernel for c in cases} == set(KERNELS), "a kernel has no case")
+    check({c.kernel for c in cases} == set(INT_KERNELS),
+          "a kernel has no case")
 
     # time N = 2**20 at K = 5 and 10, and the largest δ input of each width
     # the main path had
@@ -412,6 +451,205 @@ def kernel_phase(torch, dev, path_shapes):
 
 
 # ---------------------------------------------------------------------------
+# phases 4-6: the language-model forward
+# ---------------------------------------------------------------------------
+
+def lm_batch(torch, cfg, batch: int, seq: int, gen, dev):
+    seq_ids = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
+                            generator=gen, device=dev)
+    return {"tokens": seq_ids[:, :-1], "labels": seq_ids[:, 1:]}
+
+
+def lm_forward_phase(torch, dev):
+    """Full width and depth, cold then warm; each forward between a reset
+    and a read of the launch counts. Returns the cold forward's counts."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.train.train_step import make_loss_fn
+    launches = {}
+    for arch in LM_ARCHS:
+        cfg = get_config(arch)
+        model = get_model(cfg.family)
+        kernel = LM_KERNEL[cfg.family]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t0 = time.perf_counter()
+        params = init_params(model.param_specs(cfg), gen, dev)
+        batch = lm_batch(torch, cfg, LM_BATCH, LM_SEQ, gen, dev)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _tensors(params))
+        log(f"lm {arch}: {n_params / 1e9:.3f} B parameters initialised on "
+            f"the card in {time.perf_counter() - t0:.1f} s")
+        loss_fn = make_loss_fn(cfg)
+        torch.cuda.reset_peak_memory_stats(dev)
+        for run in ("cold", "warm"):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = float(loss_fn(params, batch))      # reads back: a sync
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+            if run == "cold":
+                launches[kernel] = counts[kernel]
+            log(f"lm {arch} forward {run}: {secs:.3f} s, "
+                f"{LM_BATCH * LM_SEQ / secs:.0f} tokens/s, loss {loss:.4f} "
+                f"(ln vocab {math.log(cfg.vocab_size):.4f}), launches "
+                f"{json.dumps(counts)}")
+            check(counts[kernel] == cfg.n_layers,
+                  f"{arch} {run}: {counts[kernel]} {kernel} launches for "
+                  f"{cfg.n_layers} layers")
+            check(all(v == 0 for k, v in counts.items() if k != kernel),
+                  f"{arch} {run}: another kernel launched: {counts}")
+            check(math.isfinite(loss) and
+                  abs(loss - math.log(cfg.vocab_size)) < LM_LOSS_BAND,
+                  f"{arch} {run}: loss {loss} not finite or not within "
+                  f"{LM_LOSS_BAND} of ln(vocab)")
+        peak = torch.cuda.max_memory_allocated(dev)
+        weights = sum(x.numel() * x.element_size() for x in _tensors(params))
+        log(f"lm {arch}: peak device memory {peak / 2**30:.2f} GiB "
+            f"(parameters {weights / 2**30:.2f} GiB)")
+        del params, batch
+        torch.cuda.empty_cache()
+    return launches
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    else:
+        yield tree
+
+
+def lm_cpu_phase(torch, dev):
+    """Full width at reduced depth: the card's logits and loss against the
+    port's CPU plain path on the same weights and tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import get_model
+    from repro_torch.models.layers import softmax_xent
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return tree.cpu()
+
+    for arch in LM_ARCHS:
+        cfg = dataclasses.replace(get_config(arch),
+                                  n_layers=LM_REDUCED_LAYERS[arch])
+        model = get_model(cfg.family)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = init_params(model.param_specs(cfg), gen, dev)
+        batch = lm_batch(torch, cfg, LM_BATCH, LM_REDUCED_SEQ, gen, dev)
+        out = {}
+        for where, p, b in (("card", params, batch),
+                            ("cpu", to_cpu(params),
+                             {k: v.cpu() for k, v in batch.items()})):
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                logits = model.apply(cfg, p, b["tokens"])
+                loss = softmax_xent(logits, b["labels"], None,
+                                    cfg.vocab_size)
+            out[where] = (logits.float().cpu(), float(loss))
+            log(f"lm {arch} {cfg.n_layers} layers T={LM_REDUCED_SEQ} on the "
+                f"{where}: {time.perf_counter() - t0:.2f} s")
+        (gl, gloss), (cl, closs) = out["card"], out["cpu"]
+        diff = gl - cl
+        rms = float(diff.square().mean().sqrt())
+        ref_rms = float(cl.square().mean().sqrt())
+        worst, ref_max = float(diff.abs().max()), float(cl.abs().max())
+        log(f"lm {arch} card vs cpu: logits rms diff {rms:.5f} (ref rms "
+            f"{ref_rms:.5f}), max diff {worst:.5f} (ref max {ref_max:.5f}), "
+            f"loss {gloss:.6f} vs {closs:.6f}")
+        check(bool(torch.isfinite(gl).all()), f"{arch}: non-finite logits")
+        check(rms <= LM_RMS_FRAC * ref_rms and worst <= LM_MAX_FRAC * ref_max
+              and abs(gloss - closs) <= LM_LOSS_ATOL,
+              f"{arch}: the card's forward differs from the CPU plain path")
+        del params
+        torch.cuda.empty_cache()
+
+
+def recurrence_work(torch, dev, kernel: str):
+    """Thunks over input copies for the kernel and its plain version at
+    the forward's shape (bf16), and the bytes, float32 operations and
+    exponentials the function needs. Operations: an FMA counts two; a
+    score's exp(a - b) * r * k counts four plus one exponential; products
+    over a causal triangle count only its lower part (the rest is zero);
+    mamba2's c b^T is shared by the heads of a batch row and counted once
+    per row."""
+    from repro_torch.kernels import selfcheck
+    from repro_torch.kernels.mamba2 import mamba2_ssd_kernel, mamba2_ssd_ref
+    from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_kernel
+    if kernel == "rwkv6":
+        b, h, t = LM_BATCH, 64, LM_SEQ
+        n, ln = 64, 32
+        chunks = b * h * (-(-t // ln))
+        nbytes = (5 * b * h * t * n * 2 + h * n * 4 + b * h * n * n * 4)
+        tri = ln * (ln - 1) // 2
+        flops = chunks * (4 * tri * n + 2 * tri * n + 4 * ln * n * n
+                          + 8 * ln * n + 2 * n * n)
+        exps = chunks * (tri * n + 2 * ln * n + n)
+        make, kern, plain = (selfcheck.rwkv6_inputs, rwkv6_kernel,
+                             rwkv6_chunked)
+    else:
+        b, h, t = LM_BATCH, 80, LM_SEQ
+        n = p = ln = 64
+        chunks = b * h * (-(-t // ln))
+        nbytes = (2 * b * h * t * p * 2 + b * h * t * 4 + 2 * b * t * n * 2
+                  + b * h * n * p * 4)
+        tri = ln * (ln + 1) // 2
+        flops = (chunks * (2 * tri + 2 * tri * p + 4 * ln * n * p
+                           + 3 * ln * n + 2 * n * p)
+                 + b * (-(-t // ln)) * 2 * tri * n)
+        exps = chunks * (tri + 2 * ln + 1)
+        make, kern, plain = (selfcheck.ssd_inputs, mamba2_ssd_kernel,
+                             mamba2_ssd_ref)
+    copies = max(2, -(-2 * L2_BYTES // nbytes))
+    ins = [make(dev, b, h, t, seed=i) for i in range(copies)]
+    return ([lambda x=x: kern(*x) for x in ins],
+            [lambda x=x: plain(*x) for x in ins], nbytes, flops, exps,
+            f"B={b} H={h} T={t}")
+
+
+def lm_kernel_phase(torch, dev):
+    from repro_torch.kernels import selfcheck
+    errs = {k: 0.0 for k in LM_KERNEL.values()}
+    bad = {k: 0 for k in LM_KERNEL.values()}
+    for case in selfcheck.recurrence_cases(dev, (LM_BATCH, 64, LM_SEQ),
+                                           (LM_BATCH, 80, LM_SEQ)):
+        n_bad, err = selfcheck.float_mismatches(case)
+        bad[case.kernel] += n_bad
+        errs[case.kernel] = max(errs[case.kernel], err)
+        log(f"check {case.kernel:12s} {case.label:32s} out of tolerance "
+            f"{n_bad}  max |kernel - plain| {err:.3g}")
+    check(not any(bad.values()), f"kernel/plain disagreements: {bad}")
+    times = {}
+    for kernel in LM_KERNEL.values():
+        kern, plain, nbytes, flops, exps, shape = recurrence_work(
+            torch, dev, kernel)
+        ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
+        plain_ms, p_host = device_ms(torch, plain, TIMING_CALLS["plain"])
+        parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "fp32": flops / FP32_FLOPS_PER_S * 1e3,
+                 "exp": exps / SFU_OPS_PER_S * 1e3}
+        bound = max(parts.values())
+        times[kernel] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": ("bytes" if parts["bytes"] >= bound
+                         else "operations"),
+            "host_bound": k_host, "shape": shape}
+        log(f"time {kernel:12s} {shape} kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound:.4f} ms (bytes "
+            f"{parts['bytes']:.4f}, fp32 {parts['fp32']:.4f}, exp "
+            f"{parts['exp']:.4f}: {nbytes} B, {flops} flop, {exps} exp)  "
+            f"host-bound kernel {k_host} plain {p_host}")
+    return errs, bad, times
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     t_start = time.perf_counter()
@@ -440,12 +678,24 @@ def main() -> int:
         launches, path_shapes = main_path_phase(torch, dev)
         errs, bad, times, (n_rep, k_rep) = kernel_phase(torch, dev,
                                                         path_shapes)
+        # float32 products in full float32 (the plain versions' matmuls)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        launches.update(lm_forward_phase(torch, dev))
+        lm_cpu_phase(torch, dev)
+        lm_errs, lm_bad, lm_times = lm_kernel_phase(torch, dev)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    errs.update(lm_errs)
+    bad.update(lm_bad)
+    for name in INT_KERNELS:
+        times[name] = dict(times[(name, n_rep, k_rep)],
+                           shape=f"N={n_rep} K={k_rep}")
+    times.update(lm_times)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        t = times[(name, n_rep, k_rep)]
+        t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
@@ -453,7 +703,7 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None, "host_bound": t["host_bound"],
-            "shape": f"N={n_rep} K={k_rep}"})
+            "shape": t["shape"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -5,7 +5,8 @@ Each kernel package keeps the ref/ops/kernel triple:
 * ``ref.py``    — the plain PyTorch version of the function;
 * ``kernel.py`` — the wrapper around the hand-written CUDA kernel
   (``csrc/*.cu``, built at first use by :mod:`repro_torch.kernels._lib`);
-* ``ops.py``    — the dispatcher the relational operators call.
+* ``ops.py``    — the dispatcher the relational operators and the
+  language models call.
 
 The policy, defined once here: a CUDA tensor always goes to the kernel,
 a CPU tensor to the plain version. There is no fallback: a CUDA launch
@@ -23,7 +24,8 @@ from typing import Dict, Optional
 import torch
 
 _LAUNCHES: Dict[str, int] = {"rowhash": 0, "hash_neighbor_flags": 0,
-                             "radix_partition": 0}
+                             "radix_partition": 0, "rwkv6": 0,
+                             "mamba2_ssd": 0}
 
 
 def count_launch(name: str) -> None:
@@ -56,3 +58,24 @@ def resolve_use_kernel(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     if not use_kernel and on_cuda:
         raise ValueError("a CUDA tensor always takes the kernel")
     return bool(use_kernel)
+
+
+#: dtype codes of the float kernels' C entry points
+_FLOAT_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def float_code(x: torch.Tensor, what: str) -> int:
+    """The C entry points' code for a float32 or bfloat16 tensor."""
+    if x.dtype not in _FLOAT_CODES:
+        raise ValueError(f"{what}: float32 or bfloat16 required, got "
+                         f"{x.dtype}")
+    return _FLOAT_CODES[x.dtype]
+
+
+def refuse_grad(what: str, *xs: torch.Tensor) -> None:
+    """The float kernels have no backward: an input that requires a
+    gradient raises instead of getting a silently wrong one."""
+    if any(x is not None and x.requires_grad for x in xs):
+        raise RuntimeError(f"{what}: the CUDA kernel has no backward; call "
+                           "it on tensors that do not require grad (e.g. "
+                           "under torch.inference_mode())")

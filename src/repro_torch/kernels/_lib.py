@@ -41,6 +41,11 @@ SIGNATURES = {
     # key_hi, block_scratch, raw_counts, out, device, stream
     "mapsdi_radix_partition": [_vp, _vp, _i32, _i32, _i32, _i32, _i32,
                                _i32, _u64, _u64, _vp, _vp, _vp, _i32, _vp],
+    # r, k, v, w, u, s0, y, s_out, b, h, t, n, chunk, dtype, device, stream
+    "mapsdi_rwkv6": [_vp] * 8 + [_i32] * 7 + [_vp],
+    # xdt, la, b, c, s0, y, s_out, b, h, t, p, n, chunk, dtype, device,
+    # stream
+    "mapsdi_mamba2_ssd": [_vp] * 7 + [_i32] * 8 + [_vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

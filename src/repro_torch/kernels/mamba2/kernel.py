@@ -1,0 +1,67 @@
+"""Wrapper around the CUDA Mamba2 SSD kernel (``csrc/mamba2_ssd.cu``).
+
+It checks its inputs, allocates the outputs with ``torch.empty``,
+launches on the current stream without synchronising, raises if the
+launch reported a CUDA error, and adds one to its launch count.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
+
+#: the kernel's compiled chunk, head dim and state size
+CHUNK = 64
+HEAD_DIM = 64
+STATE = 64
+
+
+def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
+                      c: torch.Tensor, state: Optional[torch.Tensor] = None,
+                      *, chunk: int = CHUNK
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """xdt [B,H,T,64] and b/c [B,T,64] (one dtype: float32 or bfloat16),
+    la [B,H,T] float32, state [B,H,64,64] float32 or None (zeros) ->
+    (y [B,H,T,64] in that dtype, final state float32), on the card;
+    semantics of :func:`.ref.mamba2_ssd_ref` for any T."""
+    what = "mamba2_ssd"
+    refuse_grad(what, xdt, la, b, c, state)
+    bb, h, t, p = xdt.shape
+    n = b.shape[-1]
+    if chunk != CHUNK or p != HEAD_DIM or n != STATE:
+        raise ValueError(f"{what}: the kernel takes chunk {CHUNK}, head dim "
+                         f"{HEAD_DIM} and state {STATE}, got {chunk}, {p} "
+                         f"and {n}")
+    for x in (la, b, c):
+        if x.device != xdt.device or x.device.type != "cuda":
+            raise ValueError(f"{what}: CUDA tensors on one device required")
+    if tuple(la.shape) != (bb, h, t) or la.dtype != torch.float32:
+        raise ValueError(f"{what}: la must be [B, H, T] float32")
+    if tuple(b.shape) != (bb, t, n) or tuple(c.shape) != (bb, t, n):
+        raise ValueError(f"{what}: b and c must be [B, T, N]")
+    if b.dtype != xdt.dtype or c.dtype != xdt.dtype:
+        raise ValueError(f"{what}: xdt, b and c must share a dtype")
+    if state is not None and (state.dtype != torch.float32 or
+                              tuple(state.shape) != (bb, h, n, p) or
+                              state.device != xdt.device):
+        raise ValueError(f"{what}: state must be [B, H, N, P] float32 on "
+                         "xdt's device")
+    code = float_code(xdt, what)
+    xdt, la, b, c = (x.contiguous() for x in (xdt, la, b, c))
+    s0 = None if state is None else state.contiguous()
+    y = torch.empty_like(xdt)
+    s_out = torch.empty((bb, h, n, p), dtype=torch.float32,
+                        device=xdt.device)
+    if bb * h == 0:
+        return y, s_out
+    rc = _lib.lib().mapsdi_mamba2_ssd(
+        xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(),
+        s_out.data_ptr(), bb, h, t, p, n, chunk, code,
+        xdt.device.index or 0,
+        torch.cuda.current_stream(xdt.device).cuda_stream)
+    _lib.check(rc, what)
+    count_launch(what)
+    return y, s_out

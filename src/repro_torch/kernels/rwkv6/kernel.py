@@ -1,0 +1,63 @@
+"""Wrapper around the CUDA RWKV6 kernel (``csrc/rwkv6.cu``).
+
+It checks its inputs, allocates the outputs with ``torch.empty``,
+launches on the current stream without synchronising, raises if the
+launch reported a CUDA error, and adds one to its launch count.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
+
+#: the kernel's compiled chunk and head size
+CHUNK = 32
+HEAD_SIZE = 64
+
+
+def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 w: torch.Tensor, u: torch.Tensor,
+                 state: Optional[torch.Tensor] = None, *,
+                 chunk: int = CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w [B,H,T,64] (one dtype: float32 or bfloat16), u [H,64]
+    float32, state [B,H,64,64] float32 or None (zeros) -> (y [B,H,T,64]
+    in that dtype, final state float32), on the card; semantics of
+    :func:`.ref.rwkv6_chunked` for any T."""
+    what = "rwkv6"
+    refuse_grad(what, r, k, v, w, u, state)
+    b, h, t, n = r.shape
+    if chunk != CHUNK or n != HEAD_SIZE:
+        raise ValueError(f"{what}: the kernel takes chunk {CHUNK} and head "
+                         f"size {HEAD_SIZE}, got {chunk} and {n}")
+    for x in (r, k, v, w):
+        if x.device != r.device or x.device.type != "cuda":
+            raise ValueError(f"{what}: CUDA tensors on one device required")
+        if tuple(x.shape) != (b, h, t, n):
+            raise ValueError(f"{what}: r/k/v/w shapes differ")
+    if any(x.dtype != r.dtype for x in (k, v, w)):
+        raise ValueError(f"{what}: r, k, v and w must share a dtype")
+    if u.dtype != torch.float32 or tuple(u.shape) != (h, n) \
+            or u.device != r.device:
+        raise ValueError(f"{what}: u must be [H, N] float32 on r's device")
+    if state is not None and (state.dtype != torch.float32 or
+                              tuple(state.shape) != (b, h, n, n) or
+                              state.device != r.device):
+        raise ValueError(f"{what}: state must be [B, H, N, N] float32 on r's "
+                         "device")
+    code = float_code(r, what)
+    r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
+    s0 = None if state is None else state.contiguous()
+    y = torch.empty_like(r)
+    s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
+    if b * h == 0:
+        return y, s_out
+    rc = _lib.lib().mapsdi_rwkv6(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+        None if s0 is None else s0.data_ptr(), y.data_ptr(),
+        s_out.data_ptr(), b, h, t, n, chunk, code,
+        r.device.index or 0, torch.cuda.current_stream(r.device).cuda_stream)
+    _lib.check(rc, what)
+    count_launch(what)
+    return y, s_out

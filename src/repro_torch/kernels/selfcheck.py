@@ -2,9 +2,14 @@
 the CUDA-only tests.
 
 Each case feeds the same CUDA tensors to a kernel's wrapper and to its
-plain PyTorch version and counts the output elements that differ. The
-comparison is bit for bit (tolerance 0): the kernels are integer code.
-Inputs come from ``numpy.random.default_rng(seed)``.
+plain PyTorch version and counts the output elements that differ. For the
+integer kernels (``cases``) the comparison is bit for bit (tolerance 0).
+For the float recurrences (``recurrence_cases``) an element passes when
+``|kernel - plain| <= rtol * |plain| + atol_frac * max|plain|``: both
+compute in float32 and differ in summation order and in the last bit of
+``exp``/``log``; a bfloat16 output may then round to the neighbouring
+value, one bfloat16 step (at most 2**-7 of the value). Inputs come from
+``numpy.random.default_rng(seed)``.
 """
 from __future__ import annotations
 
@@ -17,10 +22,14 @@ import torch
 from repro_torch.relalg.guard import host_int
 from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
 
+from .mamba2.kernel import mamba2_ssd_kernel
+from .mamba2.ref import mamba2_ssd_ref
 from .radix_partition.kernel import radix_partition_kernel
 from .radix_partition.ref import PAD_ID, radix_partition_ref
 from .rowhash.kernel import hash_neighbor_flags_kernel, rowhash_kernel
 from .rowhash.ref import hash_neighbor_flags_ref, rowhash_ref
+from .rwkv6.kernel import rwkv6_kernel
+from .rwkv6.ref import rwkv6_chunked
 
 #: distinct K=2 rows with identical 32-bit row hashes (brute-forced)
 COLLIDING_PAIRS = [
@@ -33,7 +42,7 @@ COLLIDING_PAIRS = [
 
 @dataclasses.dataclass
 class Case:
-    kernel: str          # "rowhash" | "hash_neighbor_flags" | "radix_partition"
+    kernel: str          # a key of repro_torch.kernels.launch_counts()
     label: str
     kernel_fn: Callable[[], Tuple[torch.Tensor, ...]]
     plain_fn: Callable[[], Tuple[torch.Tensor, ...]]
@@ -156,3 +165,120 @@ def mismatches(case: Case) -> int:
         else:
             bad += host_int((g != w).sum())
     return bad + abs(len(got) - len(want))
+
+
+# ---------------------------------------------------------------------------
+# float recurrences
+# ---------------------------------------------------------------------------
+
+#: per-element tolerance by output dtype: (rtol, atol as a fraction of the
+#: output's largest magnitude)
+TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-4, 1e-5)}
+
+
+def rwkv6_inputs(device, b: int, h: int, t: int, *, dtype=torch.bfloat16,
+                 w=None, state: bool = False, seed: int = 0):
+    """(r, k, v, w, u, state) shaped as the model hands them to the WKV6
+    scan: w = exp(-exp(z)) for z in [-6, 2] (decays from 6e-4 to 0.9975)
+    unless ``w`` (a float) fixes every decay."""
+    rng = np.random.default_rng(seed)
+    n = 64
+
+    def mk(a, dt):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dt)
+
+    r = mk(rng.normal(0, 1, (b, h, t, n)), dtype)
+    k = mk(rng.normal(0, 0.3, (b, h, t, n)), dtype)
+    v = mk(rng.normal(0, 1, (b, h, t, n)), dtype)
+    wa = (np.exp(-np.exp(rng.uniform(-6, 2, (b, h, t, n)))) if w is None
+          else np.full((b, h, t, n), w))
+    wt = mk(wa, dtype)
+    u = mk(rng.normal(0, 0.3, (h, n)), torch.float32)
+    s0 = mk(rng.normal(0, 1, (b, h, n, n)), torch.float32) if state else None
+    return r, k, v, wt, u, s0
+
+
+def ssd_inputs(device, b: int, h: int, t: int, *, dtype=torch.bfloat16,
+               la=None, state: bool = False, seed: int = 0):
+    """(xdt, la, b, c, state) shaped as the model hands them to the SSD
+    scan: xdt = x * dt rounded to ``dtype``, la = dt * A with dt in
+    [0.01, 3] and A in [-4, -0.25], unless ``la`` (a float) fixes it."""
+    rng = np.random.default_rng(seed)
+    n = p = 64
+
+    def mk(a, dt):
+        return torch.from_numpy(a.astype(np.float32)).to(device, dt)
+
+    dt = rng.uniform(0.01, 3.0, (b, h, t))
+    xdt = mk(rng.normal(0, 1, (b, h, t, p)) * dt[..., None], dtype)
+    la_a = (dt * -rng.uniform(0.25, 4.0, (h,))[None, :, None] if la is None
+            else np.full((b, h, t), la))
+    bm = mk(rng.normal(0, 1, (b, t, n)), dtype)
+    cm = mk(rng.normal(0, 1, (b, t, n)), dtype)
+    s0 = mk(rng.normal(0, 1, (b, h, n, p)), torch.float32) if state else None
+    return xdt, mk(la_a, torch.float32), bm, cm, s0
+
+
+def recurrence_cases(device: torch.device,
+                     rwkv6_shape: Tuple[int, int, int] = (2, 64, 2048),
+                     ssd_shape: Tuple[int, int, int] = (2, 80, 2048),
+                     seed: int = 0) -> List[Case]:
+    """Both float kernels at the main path's (B, H, T) in bfloat16, and at
+    the edge cases: T not a chunk multiple, T = one chunk, T = 1, float32
+    inputs, an initial state, and decays at 0 and near 1."""
+    out: List[Case] = []
+
+    def add_rwkv6(label: str, b, h, t, **kw) -> None:
+        x = rwkv6_inputs(device, b, h, t, seed=seed + len(out), **kw)
+        out.append(Case("rwkv6", label, lambda: rwkv6_kernel(*x),
+                        lambda: rwkv6_chunked(*x)))
+
+    def add_ssd(label: str, b, h, t, **kw) -> None:
+        x = ssd_inputs(device, b, h, t, seed=seed + len(out), **kw)
+        out.append(Case("mamba2_ssd", label, lambda: mamba2_ssd_kernel(*x),
+                        lambda: mamba2_ssd_ref(*x)))
+
+    b, h, t = rwkv6_shape
+    add_rwkv6(f"path B={b} H={h} T={t} bf16", b, h, t)
+    add_rwkv6("T=40 (not a chunk multiple)", 1, 3, 40)
+    add_rwkv6("T=32 (one chunk)", 2, 2, 32)
+    add_rwkv6("T=1", 2, 2, 1)
+    add_rwkv6("f32 T=100", 1, 4, 100, dtype=torch.float32)
+    add_rwkv6("initial state T=96", 2, 2, 96, state=True)
+    add_rwkv6("w = 0", 1, 2, 64, w=0.0, dtype=torch.float32)
+    add_rwkv6("w = 1e-38", 1, 2, 64, w=1e-38, dtype=torch.float32)
+    add_rwkv6("w = 1 - 6e-8", 1, 2, 128, w=1.0 - 6e-8, dtype=torch.float32)
+    add_rwkv6("w = 1 bf16", 1, 2, 64, w=1.0)
+    b, h, t = ssd_shape
+    add_ssd(f"path B={b} H={h} T={t} bf16", b, h, t)
+    add_ssd("T=40 (not a chunk multiple)", 1, 3, 40)
+    add_ssd("T=64 (one chunk)", 2, 2, 64)
+    add_ssd("T=1", 2, 2, 1)
+    add_ssd("f32 T=150", 1, 4, 150, dtype=torch.float32)
+    add_ssd("initial state T=128", 2, 2, 128, state=True)
+    add_ssd("la = 0 (no decay)", 1, 2, 128, la=0.0, dtype=torch.float32)
+    add_ssd("la = -80 (decay to 0)", 1, 2, 128, la=-80.0,
+            dtype=torch.float32)
+    return out
+
+
+def float_mismatches(case: Case) -> Tuple[int, float]:
+    """(elements out of tolerance, largest absolute difference) between
+    the kernel and the plain version; a shape or dtype disagreement counts
+    every element."""
+    got, want = _tuple(case.kernel_fn()), _tuple(case.plain_fn())
+    torch.cuda.synchronize()
+    bad, err = abs(len(got) - len(want)), 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            bad += max(g.numel(), w.numel(), 1)
+            continue
+        if not w.numel():
+            continue
+        rtol, atol_frac = TOLERANCE[w.dtype]
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        limit = rtol * w.abs() + atol_frac * float(w.abs().max())
+        bad += host_int((~(diff <= limit)).sum())
+        err = max(err, float(diff.max()))
+    return bad, err

@@ -1,0 +1,265 @@
+"""Shared building blocks of the language models.
+
+Functional, as in the JAX package: a layer is a ``*_specs`` builder of
+ParamSpecs and a forward function over a dict of tensors. The JAX
+package's sharding context (``ShardCtx``/``constrain``) is gone: with one
+card its constraints are no-ops.
+
+Dtypes follow the reference op for op: bf16 activations and weights,
+norms, softmax and activations computed in float32 and cast back.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
+
+Params = Dict[str, Any]
+
+MASK_VALUE = -1e30
+
+
+# ---------------------------------------------------------------------------
+# spec helpers
+# ---------------------------------------------------------------------------
+
+def stack_specs(specs, n: int):
+    """Prepend a stacked ``layers`` dim to every ParamSpec in a tree."""
+    return spec_tree_map(
+        lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init, s.init_scale),
+        specs)
+
+
+def layer_params(tree, *index: int):
+    """One layer's parameters out of a stacked tree (``tree[...][index]``
+    on every leaf; the reference scans over the leading axes instead)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[index]
+    return {k: layer_params(v, *index) for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * w.float() + b.float()).to(x.dtype)
+
+
+def norm_specs(d: int) -> ParamSpec:
+    # rms_norm weight stored as offset-from-1 (init zeros)
+    return ParamSpec((d,), torch.float32, "zeros")
+
+
+# ---------------------------------------------------------------------------
+# rotary embedding
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float = 10000.0,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., S, n_heads, d_head]; positions: [..., S] (broadcastable)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                     # [d/2]
+    ang = positions[..., None].float() * freqs                 # [..., S, d/2]
+    sin = torch.sin(ang)[..., None, :]                         # [..., S, 1, d/2]
+    cos = torch.cos(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention (blockwise online softmax, plain PyTorch)
+# ---------------------------------------------------------------------------
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: Optional[int] = None,
+                        kv_len: Optional[int] = None,
+                        scale: Optional[float] = None,
+                        block_k: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over kv blocks (O(S·block) live memory).
+
+    q [B,H,Sq,D]; k/v [B,KH,Sk,D]; GQA by head groups; q rows sit at the
+    end of the kv timeline (``kv_len - Sq``); ``window`` 0/None => full.
+    """
+    b, h, s_q, d = q.shape
+    _, kh, s_k, _ = k.shape
+    if h % kh:
+        raise ValueError(f"{h} query heads do not group over {kh} kv heads")
+    group = h // kh
+    scale = (d ** -0.5) if scale is None else scale
+    kv_len = s_k if kv_len is None else min(s_k, kv_len)
+    window = window or 0
+    q_off = kv_len - s_q
+    if s_k % block_k:     # pad kv to a block multiple; kv_len masks the tail
+        pad = block_k - s_k % block_k
+        k = F.pad(k, (0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, pad))
+        s_k += pad
+
+    dev = q.device
+    qf = (q.float() * scale).reshape(b, kh, group * s_q, d)
+    qp = (q_off + torch.arange(s_q, device=dev)).repeat(group)[:, None]
+    m = torch.full((b, kh, group * s_q), MASK_VALUE, device=dev)
+    l_sum = torch.zeros((b, kh, group * s_q), device=dev)
+    acc = torch.zeros((b, kh, group * s_q, d), device=dev)
+    for start in range(0, s_k, block_k):
+        kc = k[:, :, start:start + block_k].float()
+        vc = v[:, :, start:start + block_k].float()
+        s = qf @ kc.transpose(-1, -2)
+        k_pos = start + torch.arange(block_k, device=dev)
+        mask = k_pos[None, :] < kv_len
+        if causal:
+            mask = mask & (qp >= k_pos[None, :])
+        if window > 0:
+            mask = mask & ((qp - k_pos[None, :]) < window)
+        s = torch.where(mask, s, MASK_VALUE)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l_sum = alpha * l_sum + p.sum(-1)
+        acc = acc * alpha[..., None] + p @ vc
+        m = m_new
+    l_sum = torch.where(l_sum == 0.0, 1.0, l_sum)
+    out = (acc / l_sum[..., None]).reshape(b, h, s_q, d)
+    return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: Optional[int] = None,
+              kv_len: Optional[int] = None, scale: Optional[float] = None,
+              block_k: int = 1024) -> torch.Tensor:
+    """Model-facing attention: the blockwise path. The reference's flash
+    kernel branch (``use_pallas`` with a static window) and its decode
+    branch are not ported yet (ROADMAP.md Queue 1 item 7, Queue 2)."""
+    bk = min(block_k, k.shape[2])
+    return blockwise_attention(q, k, v, causal=causal, window=window,
+                               kv_len=kv_len, scale=scale, block_k=bk)
+
+
+# ---------------------------------------------------------------------------
+# attention block (GQA + qk_norm + rope)
+# ---------------------------------------------------------------------------
+
+def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, d_head: int,
+               qk_norm: bool = False) -> Params:
+    s: Params = {
+        "wq": ParamSpec((d_model, n_heads, d_head), init="scaled"),
+        "wk": ParamSpec((d_model, n_kv_heads, d_head), init="scaled"),
+        "wv": ParamSpec((d_model, n_kv_heads, d_head), init="scaled"),
+        "wo": ParamSpec((n_heads, d_head, d_model), init="scaled"),
+    }
+    if qk_norm:
+        s["q_norm"] = ParamSpec((d_head,), torch.float32, "zeros")
+        s["k_norm"] = ParamSpec((d_head,), torch.float32, "zeros")
+    return s
+
+
+def attn_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+             rope_theta: float = 10000.0, use_rope: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x [B,S,D] -> q [B,H,S,Dh], k/v [B,KH,S,Dh] (rope + qk_norm applied)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    if "q_norm" in p:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if use_rope:
+        q = apply_rope(q, positions, rope_theta)
+        k = apply_rope(k, positions, rope_theta)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    """o [B,H,S,Dh] -> [B,S,D]."""
+    return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU)
+# ---------------------------------------------------------------------------
+
+def mlp_specs(d_model: int, d_ff: int, gated: bool = True) -> Params:
+    s: Params = {
+        "w_up": ParamSpec((d_model, d_ff), init="scaled"),
+        "w_down": ParamSpec((d_ff, d_model), init="scaled"),
+    }
+    if gated:
+        s["w_gate"] = ParamSpec((d_model, d_ff), init="scaled")
+    return s
+
+
+def mlp(p: Params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if "w_gate" in p:
+        gate = x @ p["w_gate"]
+        h = act(gate.float()).to(x.dtype) * up
+    else:
+        h = act(up.float()).to(x.dtype)
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# embedding / unembedding / loss
+# ---------------------------------------------------------------------------
+
+def embed_specs(vocab_padded: int, d_model: int,
+                tied: bool = True) -> Params:
+    s: Params = {"embedding": ParamSpec((vocab_padded, d_model),
+                                        init="normal")}
+    if not tied:
+        s["unembed"] = ParamSpec((d_model, vocab_padded), init="scaled")
+    return s
+
+
+def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return p["embedding"][tokens]
+
+
+def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+    if "unembed" in p:
+        return x @ p["unembed"]
+    return x @ p["embedding"].T
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None,
+                 vocab_size: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy (float32). ``vocab_size`` masks padded
+    vocab rows."""
+    lf = logits.float()
+    if vocab_size is not None and vocab_size < lf.shape[-1]:
+        pad = torch.arange(lf.shape[-1], device=lf.device) >= vocab_size
+        lf = lf.masked_fill(pad, MASK_VALUE)
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,0 +1,170 @@
+"""Zamba2 hybrid: Mamba2 (SSD) backbone + a weight-shared attention block.
+
+54 Mamba2 layers in 9 groups of 6; ONE shared transformer block (attn+MLP,
+its own parameters reused at every invocation) runs at the start of each
+group on ``concat(hidden, original_embedding)`` projected back to d_model.
+Mamba2 parameters are stacked [groups, layers per group, ...] as in the
+JAX package; the port loops over them. The SSD scan runs the CUDA kernel
+on the card (``kernels/mamba2``).
+
+The port has the full-sequence forward ``apply``; the serving entry
+points (``cache_specs``/``prefill``/``decode_step``) are queued in
+ROADMAP.md.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.kernels.mamba2 import mamba2_ssd
+
+from .layers import (Params, attention, attn_out, attn_qkv, attn_specs,
+                     embed, embed_specs, layer_params, mlp, mlp_specs,
+                     norm_specs, rms_norm, stack_specs, unembed)
+
+CONV_K = 4
+F32 = torch.float32
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def _mamba_specs(cfg) -> Params:
+    d = cfg.d_model
+    di = cfg.d_inner
+    n = cfg.ssm_state
+    hd = cfg.ssm_head_dim
+    h = di // hd
+    conv_ch = di + 2 * n
+    return {
+        "ln": norm_specs(d),
+        "in_proj": ParamSpec((d, 2 * di + 2 * n + h), init="scaled"),
+        "conv_w": ParamSpec((CONV_K, conv_ch), F32, "normal", 0.2),
+        "conv_b": ParamSpec((conv_ch,), F32, "zeros"),
+        "a_log": ParamSpec((h,), F32, "zeros"),
+        "dt_bias": ParamSpec((h,), F32, "zeros"),
+        "d_skip": ParamSpec((h,), F32, "zeros"),
+        "norm_w": ParamSpec((di,), F32, "zeros"),
+        "out_proj": ParamSpec((di, d), init="scaled"),
+    }
+
+
+def _shared_block_specs(cfg) -> Params:
+    d = cfg.d_model
+    return {
+        "in_proj": ParamSpec((2 * d, d), init="scaled"),
+        "ln_attn": norm_specs(d),
+        "attn": attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head),
+        "ln_mlp": norm_specs(d),
+        "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
+        "out_proj": ParamSpec((d, d), init="scaled"),
+    }
+
+
+def n_groups(cfg) -> int:
+    if cfg.n_layers % cfg.shared_attn_every:
+        raise ValueError(f"{cfg.n_layers} layers do not split into groups "
+                         f"of {cfg.shared_attn_every}")
+    return cfg.n_layers // cfg.shared_attn_every
+
+
+def param_specs(cfg) -> Params:
+    per_group = stack_specs(_mamba_specs(cfg), cfg.shared_attn_every)
+    return {
+        "embed": embed_specs(cfg.vocab_padded, cfg.d_model, tied=True),
+        "shared": _shared_block_specs(cfg),
+        "groups": stack_specs(per_group, n_groups(cfg)),
+        "ln_f": norm_specs(cfg.d_model),
+    }
+
+
+# ---------------------------------------------------------------------------
+# mamba2 block
+# ---------------------------------------------------------------------------
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 conv_state: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d. x [B,S,C]; w [K,C]; conv_state [B,K-1,C]
+    (trailing inputs of the previous call) or None (zeros). Returns
+    (y [B,S,C], new_state [B,K-1,C])."""
+    bsz, s, ch = x.shape
+    k = w.shape[0]
+    prev = (x.new_zeros((bsz, k - 1, ch)) if conv_state is None
+            else conv_state.to(x.dtype))
+    xp = torch.cat([prev, x], dim=1)                  # [B, S+K-1, C]
+    wx = w.to(x.dtype)
+    y = xp[:, 0:s] * wx[0]
+    for i in range(1, k):
+        y = y + xp[:, i:i + s] * wx[i]
+    y = y + b.to(x.dtype)
+    return y, xp[:, -(k - 1):]
+
+
+def mamba_block(cfg, p: Params, x: torch.Tensor, state
+                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """state = (conv [B,K-1,C], ssd [B,H,N,P]) or (None, None)."""
+    bsz, s, d = x.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    hd = cfg.ssm_head_dim
+    h = di // hd
+    conv_in, ssd_in = state
+
+    hin = rms_norm(x, p["ln"])
+    zxbcdt = hin @ p["in_proj"]
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
+    xbc, conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_in)
+    xbc = F.silu(xbc.float()).to(x.dtype)
+    xs, bmat, cmat = torch.split(xbc, [di, n, n], dim=-1)
+
+    dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])   # [B,S,H]
+    a = -torch.exp(p["a_log"].float())                           # [H]
+    xh = xs.reshape(bsz, s, h, hd).transpose(1, 2)               # [B,H,S,P]
+    y, ssd_out = mamba2_ssd(xh, dt.transpose(1, 2), a, bmat, cmat,
+                            state=ssd_in)
+    # bf16 + f32 promotes to f32, as in the reference: the gate, the norm
+    # and out_proj's product run in float32
+    y = y + p["d_skip"].float()[None, :, None, None] * xh
+    y = y.transpose(1, 2).reshape(bsz, s, di)
+    y = rms_norm(y, p["norm_w"]) * F.silu(z.float()).to(y.dtype)
+    out = (y @ p["out_proj"].to(y.dtype)).to(x.dtype)
+    return x + out, (conv_out, ssd_out)
+
+
+# ---------------------------------------------------------------------------
+# shared attention block
+# ---------------------------------------------------------------------------
+
+def shared_block(cfg, p: Params, x: torch.Tensor, x0: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """The full-sequence form (the reference's ``kv=None`` branch)."""
+    cat = torch.cat([x, x0], dim=-1)
+    hin = cat @ p["in_proj"]
+    hin = rms_norm(hin, p["ln_attn"])
+    q, k, v = attn_qkv(p["attn"], hin, positions, rope_theta=cfg.rope_theta)
+    o = attention(q, k, v, causal=True)
+    hin = hin + attn_out(p["attn"], o)
+    hin = hin + mlp(p["mlp"], rms_norm(hin, p["ln_mlp"]))
+    return x + hin @ p["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# entry point
+# ---------------------------------------------------------------------------
+
+def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B,S] -> logits [B,S,vocab_padded]."""
+    x = embed(params["embed"], tokens)
+    x0 = x
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    for g in range(n_groups(cfg)):
+        x = shared_block(cfg, params["shared"], x, x0, positions)
+        for i in range(cfg.shared_attn_every):
+            x, _ = mamba_block(cfg, layer_params(params["groups"], g, i), x,
+                               (None, None))
+    x = rms_norm(x, params["ln_f"])
+    return unembed(params["embed"], x)

@@ -1,0 +1,31 @@
+"""The loss of the language models: the forward pass and a mean
+next-token cross-entropy, run without autograd.
+
+The JAX package's train step differentiates this loss; the port's
+kernels have no backward yet, so the gradient step is queued in
+ROADMAP.md and ``make_loss_fn`` runs under ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.models import get_model
+from repro_torch.models.layers import softmax_xent
+
+Batch = Dict[str, torch.Tensor]
+
+
+def make_loss_fn(cfg) -> Callable:
+    """(params, batch) -> 0-d float32 loss. Batch keys (the rwkv and
+    hybrid families): tokens, labels [B,S] (+ loss_mask)."""
+    model = get_model(cfg.family)
+
+    def loss_fn(params, batch: Batch) -> torch.Tensor:
+        with torch.inference_mode():
+            logits = model.apply(cfg, params, batch["tokens"])
+            return softmax_xent(logits, batch["labels"],
+                                batch.get("loss_mask"), cfg.vocab_size)
+
+    return loss_fn
