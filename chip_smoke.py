@@ -32,22 +32,38 @@ no result):
    (CUDA events around back-to-back calls queued behind a sleep kernel,
    over input copies that together exceed the L2 cache), beside the bound
    the card's memory and integer rates set.
-4. The language-model forward of the ``rwkv`` and ``hybrid`` families,
-   with its own counts: ``make_loss_fn`` of ``rwkv6-7b`` (32 layers) and
-   then ``zamba2-2.7b`` (54 layers) at full width and depth on random
-   weights from a seeded ``torch.Generator`` on the card, B = 2, T = 2048,
-   cold and then warm. Each forward must launch its recurrence kernel
-   exactly once per layer and no other kernel; the loss must be finite
-   and within 1.0 of ln(vocab) (random weights). Prints seconds, tokens/s
-   and peak memory.
+4. The language models at full width and depth on random weights from a
+   seeded ``torch.Generator`` on the card, with their own counts:
+   ``make_loss_fn`` of ``rwkv6-7b`` (32 layers) and ``zamba2-2.7b`` (54
+   layers) at B = 2, T = 2048, and ``whisper-large-v3`` (32 + 32 layers)
+   at B = 4, 1500 random frames and 448 decoder tokens, cold and then
+   warm. Each forward must launch exactly: ``rwkv6`` once per layer;
+   ``mamba2_ssd`` once per layer and ``flash_attention`` once per group
+   (9); whisper ``flash_attention`` 64 times (32 encoder + 32 decoder
+   layers); and no other kernel. The loss must be finite and within 1.0
+   of ln(vocab). Prints seconds, tokens/s and peak memory. Then each
+   model serves: ``greedy_generate`` (4 prompts of 4 tokens, 32 new
+   tokens), and the same through ``make_prefill`` and
+   ``make_serve_step`` one call at a time, counted per call (rwkv6: 32
+   ``rwkv6`` per prefill and per step; zamba2: 54 ``mamba2_ssd``;
+   whisper: 32 ``flash_attention`` per prefill, none per step) and
+   timed; both must give the same tokens.
 5. The same widths at reduced depth (rwkv6 2 layers, zamba2 6 = one
-   group), T = 40 (not a chunk multiple): the card's logits and loss
-   against the port's CPU plain path on the same weights.
-6. Both recurrence kernels against their plain versions on the card at
-   the forward's shapes and at edge cases (``selfcheck.recurrence_cases``,
-   tolerances stated there), then their device times beside the bound
-   (``recurrence_work``).
-7. A ``{"kernels": [...]}`` JSON line for all five kernels, then as the
+   group, whisper 2 + 2 on float32 weights: see ``LM_REDUCED_F32``),
+   T = 40 (not a chunk multiple): the card's logits and loss, and its
+   prefill and three teacher-forced decode steps, against the port's CPU
+   plain path on the same weights. For whisper it also checks, on bf16
+   weights, the encoder's output card against CPU at the same fractions,
+   and reports, without checking, the bf16 logits' difference beside the
+   CPU's own sensitivity to noise on the frames.
+6. The three float kernels against their plain versions on the card at
+   the paths' shapes and at edge cases (``selfcheck.recurrence_cases``
+   and ``selfcheck.attention_cases``, tolerances stated there), then
+   their device times beside the bound (``recurrence_work``,
+   ``attention_work``) and, for flash attention, beside
+   ``F.scaled_dot_product_attention`` at the same shape (the library
+   yardstick; the port never calls it).
+7. A ``{"kernels": [...]}`` JSON line for all six kernels, then as the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -92,18 +108,36 @@ GROUP_A_ROWS = 200_000
 INGEST_IN_BUCKET = 0.02
 INGEST_CROSSING = {"group_b": 0.06, "group_a": 0.35}
 
-#: language-model forward: the path's batch and sequence; the reduced
-#: depth of the CPU comparison and its sequence; the comparison's
-#: tolerances (bf16 on both sides, rounded per op; accumulation order
-#: differs between cuBLAS and the CPU's kernels): logits within 3% of
-#: their RMS in RMS and 8% of their largest magnitude, loss within 2e-3
-LM_ARCHS = ("rwkv6-7b", "zamba2-2.7b")
-LM_BATCH, LM_SEQ = 2, 2048
-LM_REDUCED_LAYERS = {"rwkv6-7b": 2, "zamba2-2.7b": 6}
-LM_REDUCED_SEQ = 40
+#: language models: per arch the loss forward's (batch, sequence) (the
+#: decoder's tokens for whisper, whose encoder takes 1500 frames); the
+#: reduced depth, batch, sequence and decode steps of the card-versus-CPU
+#: comparison; its tolerances (bf16 on both sides, rounded per op;
+#: accumulation order differs between cuBLAS and the CPU's kernels):
+#: logits within 3% of their RMS in RMS and 8% of their largest
+#: magnitude, loss within 2e-3
+LM_ARCHS = ("rwkv6-7b", "zamba2-2.7b", "whisper-large-v3")
+LM_SHAPE = {"rwkv6-7b": (2, 2048), "zamba2-2.7b": (2, 2048),
+            "whisper-large-v3": (4, 448)}
+LM_REDUCED_LAYERS = {"rwkv6-7b": 2, "zamba2-2.7b": 6, "whisper-large-v3": 2}
+LM_REDUCED_BATCH, LM_REDUCED_SEQ, LM_REDUCED_STEPS = 2, 40, 3
+#: whisper's logits are compared on float32 weights: its random init (q
+#: and k scaled by 1/sqrt(d_head) on the d_model-wide input: scores of
+#: standard deviation ~20) makes the softmax nearly one-hot, so in bf16
+#: noise of half a bf16 step on the frames alone moves the CPU's own
+#: logits by tens of percent (``whisper_bf16`` reports it, and checks the
+#: bf16 encoder's output, card against CPU, at the same fractions)
+LM_REDUCED_F32 = ("whisper-large-v3",)
 LM_RMS_FRAC, LM_MAX_FRAC, LM_LOSS_ATOL = 0.03, 0.08, 2e-3
 LM_LOSS_BAND = 1.0
-LM_KERNEL = {"rwkv": "rwkv6", "hybrid": "mamba2_ssd"}
+#: serving: prompts per batch, prompt length, new tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4, 32
+#: the path whose cold forward gives each float kernel's launches in the
+#: kernels line, and the flash path shape the line reports
+LAUNCH_REPORT = {"rwkv6": "rwkv6-7b", "mamba2_ssd": "zamba2-2.7b",
+                 "flash_attention": "whisper-large-v3"}
+FLASH_REPORT_SHAPE = "whisper encoder"
+#: the tensor cores' dense bf16 rate: what the same attention could use
+BF16_FLOPS_PER_S = 989e12
 
 KERNELS = {
     "rowhash": ("src/repro_torch/kernels/csrc/rowhash.cu",
@@ -118,6 +152,9 @@ KERNELS = {
               "src/repro/kernels/rwkv6/rwkv6.py:60"),
     "mamba2_ssd": ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
                    "src/repro/kernels/mamba2/mamba2.py:61"),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:96"),
 }
 INT_KERNELS = ("rowhash", "hash_neighbor_flags", "radix_partition")
 
@@ -451,18 +488,47 @@ def kernel_phase(torch, dev, path_shapes):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6: the language-model forward
+# phases 4-7: the language models
 # ---------------------------------------------------------------------------
+
+def expected_launches(cfg, what: str):
+    """Kernel launches of one loss ``forward``, one ``prefill`` or one
+    decode ``step``: the recurrence once per layer; the flash kernel once
+    per full-sequence self-attention (zamba2's shared block in the
+    forward, once per group; whisper's encoder layers, and its decoder
+    layers in the forward); cached attention takes the plain paths."""
+    if cfg.family == "rwkv":
+        return {"rwkv6": cfg.n_layers}
+    if cfg.family == "hybrid":
+        out = {"mamba2_ssd": cfg.n_layers}
+        if what == "forward":
+            out["flash_attention"] = cfg.n_layers // cfg.shared_attn_every
+        return out
+    return {"forward": {"flash_attention": 2 * cfg.n_layers},
+            "prefill": {"flash_attention": cfg.n_layers},
+            "step": {}}[what]
+
+
+def check_counts(counts, want, what: str) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    check(got == want, f"{what}: launches {got}, expected exactly {want}")
+
 
 def lm_batch(torch, cfg, batch: int, seq: int, gen, dev):
     seq_ids = torch.randint(0, cfg.vocab_size, (batch, seq + 1),
                             generator=gen, device=dev)
-    return {"tokens": seq_ids[:, :-1], "labels": seq_ids[:, 1:]}
+    out = {"tokens": seq_ids[:, :-1], "labels": seq_ids[:, 1:]}
+    if cfg.family == "encdec":      # the stub frontend's frame embeddings
+        out["frames"] = torch.randn(
+            (batch, cfg.n_enc_frames, cfg.d_model), generator=gen,
+            device=dev).to(torch.bfloat16)
+    return out
 
 
 def lm_forward_phase(torch, dev):
-    """Full width and depth, cold then warm; each forward between a reset
-    and a read of the launch counts. Returns the cold forward's counts."""
+    """Full width and depth: the loss cold then warm, then serving; each
+    forward, prefill and step between a reset and a read of the launch
+    counts. Returns each reported kernel's launches per cold forward."""
     import math
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import init_params
@@ -473,11 +539,12 @@ def lm_forward_phase(torch, dev):
     for arch in LM_ARCHS:
         cfg = get_config(arch)
         model = get_model(cfg.family)
-        kernel = LM_KERNEL[cfg.family]
+        b, seq = LM_SHAPE[arch]
+        want = expected_launches(cfg, "forward")
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
         params = init_params(model.param_specs(cfg), gen, dev)
-        batch = lm_batch(torch, cfg, LM_BATCH, LM_SEQ, gen, dev)
+        batch = lm_batch(torch, cfg, b, seq, gen, dev)
         torch.cuda.synchronize()
         n_params = sum(x.numel() for x in _tensors(params))
         log(f"lm {arch}: {n_params / 1e9:.3f} B parameters initialised on "
@@ -492,27 +559,96 @@ def lm_forward_phase(torch, dev):
             secs = time.perf_counter() - t0
             counts = launch_counts()
             if run == "cold":
-                launches[kernel] = counts[kernel]
-            log(f"lm {arch} forward {run}: {secs:.3f} s, "
-                f"{LM_BATCH * LM_SEQ / secs:.0f} tokens/s, loss {loss:.4f} "
+                for k, v in counts.items():
+                    if LAUNCH_REPORT.get(k) == arch:
+                        launches[k] = v
+            log(f"lm {arch} forward {run}: B={b} T={seq} {secs:.3f} s, "
+                f"{b * seq / secs:.0f} tokens/s, loss {loss:.4f} "
                 f"(ln vocab {math.log(cfg.vocab_size):.4f}), launches "
                 f"{json.dumps(counts)}")
-            check(counts[kernel] == cfg.n_layers,
-                  f"{arch} {run}: {counts[kernel]} {kernel} launches for "
-                  f"{cfg.n_layers} layers")
-            check(all(v == 0 for k, v in counts.items() if k != kernel),
-                  f"{arch} {run}: another kernel launched: {counts}")
+            check_counts(counts, want, f"{arch} forward {run}")
             check(math.isfinite(loss) and
                   abs(loss - math.log(cfg.vocab_size)) < LM_LOSS_BAND,
                   f"{arch} {run}: loss {loss} not finite or not within "
                   f"{LM_LOSS_BAND} of ln(vocab)")
         peak = torch.cuda.max_memory_allocated(dev)
         weights = sum(x.numel() * x.element_size() for x in _tensors(params))
-        log(f"lm {arch}: peak device memory {peak / 2**30:.2f} GiB "
+        log(f"lm {arch}: forward peak device memory {peak / 2**30:.2f} GiB "
             f"(parameters {weights / 2**30:.2f} GiB)")
-        del params, batch
+        del batch
+        serve_phase(torch, dev, arch, cfg, params, gen)
+        del params
         torch.cuda.empty_cache()
     return launches
+
+
+def serve_phase(torch, dev, arch, cfg, params, gen):
+    """``greedy_generate`` at full width (SERVE_BATCH prompts of
+    SERVE_PROMPT tokens, SERVE_NEW new tokens), then the same through
+    ``make_prefill`` and ``make_serve_step`` one call at a time, timed and
+    counted per call; both must give the same tokens."""
+    import statistics as st
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serve import (greedy_generate, make_prefill,
+                                   make_serve_step)
+    from repro_torch.serve.decode import grow_cache
+    b, n_new = SERVE_BATCH, SERVE_NEW
+    batch = lm_batch(torch, cfg, b, SERVE_PROMPT, gen, dev)
+    batch.pop("labels")
+    pre, per_step = (expected_launches(cfg, w) for w in ("prefill", "step"))
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = greedy_generate(cfg, params, batch, n_new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    total = {k: pre.get(k, 0) + (n_new - 1) * per_step.get(k, 0)
+             for k in set(pre) | set(per_step)}
+    check_counts(launch_counts(), {k: v for k, v in total.items() if v},
+                 f"{arch} greedy_generate")
+    check(out.shape == (b, n_new) and out.dtype == torch.int32 and
+          int(out.min()) >= 0 and int(out.max()) < cfg.vocab_padded,
+          f"{arch} greedy_generate: bad tokens {out.shape} {out.dtype}")
+    log(f"serve {arch} greedy_generate: B={b} prompt {SERVE_PROMPT} new "
+        f"{n_new}: {secs:.3f} s, {b * n_new / secs:.1f} tokens/s, launches "
+        f"{json.dumps(launch_counts())}")
+
+    prefill, step = make_prefill(cfg), make_serve_step(cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check_counts(launch_counts(), pre, f"{arch} prefill")
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch} prefill: non-finite logits")
+    tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+    toks = [tok]
+    cache = grow_cache(cache, n_new)
+    step_s = []
+    for _ in range(n_new - 1):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok)
+        tok = torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        check_counts(launch_counts(), per_step, f"{arch} decode step")
+        toks.append(tok)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{arch} decode: non-finite logits")
+    check(torch.equal(torch.cat(toks, dim=1), out),
+          f"{arch}: prefill + serve steps gave other tokens than "
+          "greedy_generate")
+    med = st.median(step_s)
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"serve {arch} prefill {prefill_s:.4f} s (launches "
+        f"{json.dumps(pre)}), decode step median {med:.4f} s (min "
+        f"{min(step_s):.4f}, max {max(step_s):.4f}; launches "
+        f"{json.dumps(per_step)}), {b / med:.1f} tokens/s per step, peak "
+        f"device memory {peak / 2**30:.2f} GiB")
 
 
 def _tensors(tree):
@@ -524,52 +660,119 @@ def _tensors(tree):
 
 
 def lm_cpu_phase(torch, dev):
-    """Full width at reduced depth: the card's logits and loss against the
-    port's CPU plain path on the same weights and tokens."""
+    """Full width at reduced depth: the card's logits and loss, and its
+    prefill and teacher-forced decode logits, against the port's CPU plain
+    path on the same weights and inputs."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import init_params
     from repro_torch.models import get_model
     from repro_torch.models.layers import softmax_xent
+    from repro_torch.serve import make_prefill, make_serve_step
+    from repro_torch.serve.decode import grow_cache
 
-    def to_cpu(tree):
+    def to(tree, where, f32):
         if isinstance(tree, dict):
-            return {k: to_cpu(v) for k, v in tree.items()}
-        return tree.cpu()
+            return {k: to(v, where, f32) for k, v in tree.items()}
+        if f32 and tree.is_floating_point():
+            tree = tree.float()
+        return tree.to(where)
 
     for arch in LM_ARCHS:
         cfg = dataclasses.replace(get_config(arch),
                                   n_layers=LM_REDUCED_LAYERS[arch])
         model = get_model(cfg.family)
         gen = torch.Generator(device=dev).manual_seed(1)
-        params = init_params(model.param_specs(cfg), gen, dev)
-        batch = lm_batch(torch, cfg, LM_BATCH, LM_REDUCED_SEQ, gen, dev)
+        f32 = arch in LM_REDUCED_F32
+        raw = init_params(model.param_specs(cfg), gen, dev)
+        params = to(raw, dev, f32)
+        batch = lm_batch(torch, cfg, LM_REDUCED_BATCH, LM_REDUCED_SEQ, gen,
+                         dev)
+        kw = ({"frames": batch["frames"]} if "frames" in batch else {})
+        prefill, step = make_prefill(cfg), make_serve_step(cfg)
         out = {}
-        for where, p, b in (("card", params, batch),
-                            ("cpu", to_cpu(params),
-                             {k: v.cpu() for k, v in batch.items()})):
+        for where, p, bt in (("card", params, batch),
+                             ("cpu", to(params, "cpu", f32),
+                              {k: v.cpu() for k, v in batch.items()})):
             t0 = time.perf_counter()
+            fkw = {"frames": bt["frames"]} if kw else {}
             with torch.inference_mode():
-                logits = model.apply(cfg, p, b["tokens"])
-                loss = softmax_xent(logits, b["labels"], None,
+                logits = model.apply(cfg, p, bt["tokens"], **fkw)
+                loss = softmax_xent(logits, bt["labels"], None,
                                     cfg.vocab_size)
-            out[where] = (logits.float().cpu(), float(loss))
-            log(f"lm {arch} {cfg.n_layers} layers T={LM_REDUCED_SEQ} on the "
-                f"{where}: {time.perf_counter() - t0:.2f} s")
-        (gl, gloss), (cl, closs) = out["card"], out["cpu"]
-        diff = gl - cl
-        rms = float(diff.square().mean().sqrt())
-        ref_rms = float(cl.square().mean().sqrt())
-        worst, ref_max = float(diff.abs().max()), float(cl.abs().max())
-        log(f"lm {arch} card vs cpu: logits rms diff {rms:.5f} (ref rms "
-            f"{ref_rms:.5f}), max diff {worst:.5f} (ref max {ref_max:.5f}), "
-            f"loss {gloss:.6f} vs {closs:.6f}")
-        check(bool(torch.isfinite(gl).all()), f"{arch}: non-finite logits")
-        check(rms <= LM_RMS_FRAC * ref_rms and worst <= LM_MAX_FRAC * ref_max
-              and abs(gloss - closs) <= LM_LOSS_ATOL,
-              f"{arch}: the card's forward differs from the CPU plain path")
-        del params
+            toks = bt["tokens"]
+            sl, cache = prefill(p, dict(fkw, tokens=toks[:, :SERVE_PROMPT]))
+            served = [sl]
+            cache = grow_cache(cache, LM_REDUCED_STEPS)
+            for i in range(LM_REDUCED_STEPS):
+                j = SERVE_PROMPT + i
+                sl, cache = step(p, cache, toks[:, j:j + 1])
+                served.append(sl)
+            out[where] = (logits.float().cpu(), float(loss),
+                          torch.cat(served, dim=1).float().cpu())
+            log(f"lm {arch} {cfg.n_layers} layers T={LM_REDUCED_SEQ} "
+                f"{'float32' if f32 else 'bf16'} weights on the {where}: "
+                f"{time.perf_counter() - t0:.2f} s")
+        (gl, gloss, gs), (cl, closs, cs) = out["card"], out["cpu"]
+        ok = True
+        for what, g, c in (("forward", gl, cl), ("prefill + decode", gs, cs)):
+            diff = g - c
+            rms = float(diff.square().mean().sqrt())
+            ref_rms = float(c.square().mean().sqrt())
+            worst, ref_max = float(diff.abs().max()), float(c.abs().max())
+            log(f"lm {arch} {what} card vs cpu: logits rms diff {rms:.5f} "
+                f"(ref rms {ref_rms:.5f}), max diff {worst:.5f} (ref max "
+                f"{ref_max:.5f})")
+            check(bool(torch.isfinite(g).all()),
+                  f"{arch} {what}: non-finite logits")
+            ok &= (rms <= LM_RMS_FRAC * ref_rms
+                   and worst <= LM_MAX_FRAC * ref_max)
+        log(f"lm {arch} loss card {gloss:.6f} vs cpu {closs:.6f}")
+        check(ok and abs(gloss - closs) <= LM_LOSS_ATOL,
+              f"{arch}: the card differs from the CPU plain path")
+        if f32:
+            whisper_bf16(torch, arch, cfg, model, raw, batch,
+                         to(raw, "cpu", False))
+        del params, raw
         torch.cuda.empty_cache()
+
+
+def whisper_bf16(torch, arch, cfg, model, params, batch, cpu_params):
+    """The bf16 route on bf16 weights, card against CPU. Checked: the
+    encoder's output (where the bf16 flash launches sit) within
+    ``LM_RMS_FRAC`` of its RMS in RMS and ``LM_MAX_FRAC`` of its largest
+    magnitude. Reported, not checked: the logits, beside the CPU's own
+    logits against the CPU's with the frames multiplied by
+    1 + 2**-8 N(0, 1) (noise of about half a bf16 step), which shows why
+    the logits are compared on float32 weights."""
+    tokens, frames = batch["tokens"].cpu(), batch["frames"].cpu()
+    noise = torch.randn(frames.shape, generator=torch.Generator().manual_seed(
+        2)) * 2.0 ** -8
+    with torch.inference_mode():
+        enc_card = model.encode(cfg, params, batch["frames"]).float().cpu()
+        enc_cpu = model.encode(cfg, cpu_params, frames).float()
+        card = model.apply(cfg, params, batch["tokens"],
+                           frames=batch["frames"]).float().cpu()
+        cpu = model.apply(cfg, cpu_params, tokens, frames=frames).float()
+        noisy = model.apply(cfg, cpu_params, tokens, frames=(
+            frames.float() * (1 + noise)).to(frames.dtype)).float()
+
+    def rel(a, b):
+        return float((a - b).square().mean().sqrt()
+                     / b.square().mean().sqrt())
+
+    enc_max = float((enc_card - enc_cpu).abs().max()
+                    / enc_cpu.abs().max())
+    log(f"lm {arch} bf16 weights: encoder output card vs cpu rms diff "
+        f"{rel(enc_card, enc_cpu):.4f} of its rms, max diff {enc_max:.4f} "
+        f"of its largest magnitude")
+    check(bool(torch.isfinite(enc_card).all())
+          and rel(enc_card, enc_cpu) <= LM_RMS_FRAC
+          and enc_max <= LM_MAX_FRAC,
+          f"{arch}: the card's bf16 encoder differs from the CPU plain path")
+    log(f"lm {arch} bf16 weights (not checked): card vs cpu logits rms "
+        f"diff {rel(card, cpu):.4f} of their rms; cpu vs cpu with noise of "
+        f"half a bf16 step on the frames {rel(noisy, cpu):.4f}")
 
 
 def recurrence_work(torch, dev, kernel: str):
@@ -584,7 +787,7 @@ def recurrence_work(torch, dev, kernel: str):
     from repro_torch.kernels.mamba2 import mamba2_ssd_kernel, mamba2_ssd_ref
     from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_kernel
     if kernel == "rwkv6":
-        b, h, t = LM_BATCH, 64, LM_SEQ
+        (b, t), h = LM_SHAPE["rwkv6-7b"], 64
         n, ln = 64, 32
         chunks = b * h * (-(-t // ln))
         nbytes = (5 * b * h * t * n * 2 + h * n * 4 + b * h * n * n * 4)
@@ -595,7 +798,7 @@ def recurrence_work(torch, dev, kernel: str):
         make, kern, plain = (selfcheck.rwkv6_inputs, rwkv6_kernel,
                              rwkv6_chunked)
     else:
-        b, h, t = LM_BATCH, 80, LM_SEQ
+        (b, t), h = LM_SHAPE["zamba2-2.7b"], 80
         n = p = ln = 64
         chunks = b * h * (-(-t // ln))
         nbytes = (2 * b * h * t * p * 2 + b * h * t * 4 + 2 * b * t * n * 2
@@ -614,20 +817,64 @@ def recurrence_work(torch, dev, kernel: str):
             f"B={b} H={h} T={t}")
 
 
-def lm_kernel_phase(torch, dev):
+def attention_pairs(s_q: int, s_k: int, causal: bool, window=None,
+                    kv_len=None) -> int:
+    """Unmasked (q, k) pairs of one (batch, head): the work the inputs
+    need (fully masked pairs need none)."""
+    kv = s_k if kv_len is None else kv_len
+    total = 0
+    for i in range(s_q):
+        qp = i + kv - s_q
+        hi = min(kv - 1, qp) if causal else kv - 1
+        lo = max(0, qp - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def attention_work(torch, dev, shape):
+    """Thunks over input copies for the flash kernel, its plain version
+    and ``F.scaled_dot_product_attention`` (the library yardstick, never
+    called by the port) at a path shape in bf16, and the bytes, products
+    and exponentials the function needs: q, k, v read once and o written
+    once; 4 D operations (two multiply-adds) and one exponential per
+    unmasked pair."""
+    import torch.nn.functional as F
     from repro_torch.kernels import selfcheck
-    errs = {k: 0.0 for k in LM_KERNEL.values()}
-    bad = {k: 0 for k in LM_KERNEL.values()}
-    for case in selfcheck.recurrence_cases(dev, (LM_BATCH, 64, LM_SEQ),
-                                           (LM_BATCH, 80, LM_SEQ)):
+    from repro_torch.kernels.flash_attention import (attention_ref,
+                                                     flash_attention_kernel)
+    label, b, h, kh, s_q, s_k, d, causal = shape
+    nbytes = 2 * (2 * b * h * s_q * d + 2 * b * kh * s_k * d)
+    pairs = b * h * attention_pairs(s_q, s_k, causal)
+    copies = max(2, -(-2 * L2_BYTES // nbytes))
+    ins = [selfcheck.attention_inputs(dev, b, h, kh, s_q, s_k, d, seed=i)
+           for i in range(copies)]
+    return ([lambda x=x: flash_attention_kernel(*x, causal=causal)
+             for x in ins],
+            [lambda x=x: attention_ref(*x, causal=causal) for x in ins],
+            [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=causal)
+             for x in ins],
+            nbytes, 4 * pairs * d, pairs, f"{label} B={b} H={h} S={s_q} D={d}")
+
+
+def lm_kernel_phase(torch, dev):
+    """The float kernels against their plain versions at the paths' shapes
+    and the edge cases, then their device times beside the bound."""
+    from repro_torch.kernels import selfcheck
+    names = ("rwkv6", "mamba2_ssd", "flash_attention")
+    errs = {k: 0.0 for k in names}
+    bad = {k: 0 for k in names}
+    (rb, rt), (zb, zt) = LM_SHAPE["rwkv6-7b"], LM_SHAPE["zamba2-2.7b"]
+    cases = (selfcheck.recurrence_cases(dev, (rb, 64, rt), (zb, 80, zt))
+             + selfcheck.attention_cases(dev))
+    for case in cases:
         n_bad, err = selfcheck.float_mismatches(case)
         bad[case.kernel] += n_bad
         errs[case.kernel] = max(errs[case.kernel], err)
-        log(f"check {case.kernel:12s} {case.label:32s} out of tolerance "
+        log(f"check {case.kernel:15s} {case.label:60s} out of tolerance "
             f"{n_bad}  max |kernel - plain| {err:.3g}")
     check(not any(bad.values()), f"kernel/plain disagreements: {bad}")
     times = {}
-    for kernel in LM_KERNEL.values():
+    for kernel in ("rwkv6", "mamba2_ssd"):
         kern, plain, nbytes, flops, exps, shape = recurrence_work(
             torch, dev, kernel)
         ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
@@ -640,12 +887,35 @@ def lm_kernel_phase(torch, dev):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": ("bytes" if parts["bytes"] >= bound
                          else "operations"),
-            "host_bound": k_host, "shape": shape}
-        log(f"time {kernel:12s} {shape} kernel {ms:.4f} ms  plain "
+            "library_ms": None, "host_bound": k_host, "shape": shape}
+        log(f"time {kernel:15s} {shape} kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  bound {bound:.4f} ms (bytes "
             f"{parts['bytes']:.4f}, fp32 {parts['fp32']:.4f}, exp "
             f"{parts['exp']:.4f}: {nbytes} B, {flops} flop, {exps} exp)  "
             f"host-bound kernel {k_host} plain {p_host}")
+    for shape in selfcheck.ATTENTION_PATH_SHAPES:
+        kern, plain, lib, nbytes, flops, exps, label = attention_work(
+            torch, dev, shape)
+        ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
+        plain_ms, p_host = device_ms(torch, plain, TIMING_CALLS["plain"])
+        lib_ms, l_host = device_ms(torch, lib, TIMING_CALLS["kernel"])
+        parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "bf16 products": flops / BF16_FLOPS_PER_S * 1e3,
+                 "exp": exps / SFU_OPS_PER_S * 1e3}
+        bound = max(parts.values())
+        entry = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": ("bytes" if parts["bytes"] >= bound
+                         else "operations"),
+            "library_ms": lib_ms, "host_bound": k_host, "shape": label}
+        if shape[0] == FLASH_REPORT_SHAPE:
+            times["flash_attention"] = entry
+        log(f"time flash_attention   {label} kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  bound {bound:.4f} ms "
+            f"(bytes {parts['bytes']:.4f}, bf16 products "
+            f"{parts['bf16 products']:.4f}, exp {parts['exp']:.4f}: "
+            f"{nbytes} B, {flops} flop, {exps} exp)  host-bound kernel "
+            f"{k_host} plain {p_host} sdpa {l_host}")
     return errs, bad, times
 
 
@@ -702,7 +972,7 @@ def main() -> int:
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "host_bound": t["host_bound"],
+            "library_ms": t.get("library_ms"), "host_bound": t["host_bound"],
             "shape": t["shape"]})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -2,7 +2,7 @@
 
 One :class:`ArchConfig` per architecture lives in ``configs/<id>.py``
 (same fields and values as the JAX package's). The port runs the
-``rwkv`` and ``hybrid`` families; ``get_config`` raises
+``rwkv``, ``hybrid`` and ``encdec`` families; ``get_config`` raises
 ``NotImplementedError`` for the other architectures, which ROADMAP.md
 queues. ``reduced_config`` shrinks a config to a CPU-test size of the
 same family (same block structure, tiny dims).
@@ -57,8 +57,9 @@ class ArchConfig:
 
     # training / distribution settings of the JAX package, carried so that
     # a config compares field by field with the reference's; the port's
-    # forward reads none of them (``use_pallas`` included: a CUDA tensor
-    # always takes the kernels, see ``repro_torch.kernels``)
+    # forward reads none of them (``use_pallas`` included: the models take
+    # the reference's use_pallas=True route, and a CUDA tensor always takes
+    # the kernels, see ``repro_torch.kernels``)
     remat: str = "full"
     fsdp: bool = False
     fsdp_pods: bool = False
@@ -90,11 +91,11 @@ class ArchConfig:
 # ---------------------------------------------------------------------------
 
 #: architectures the port runs (``configs/<id>.py``)
-ARCH_IDS = ("rwkv6_7b", "zamba2_2p7b")
+ARCH_IDS = ("rwkv6_7b", "zamba2_2p7b", "whisper_large_v3")
 #: the JAX package's other architectures, queued in ROADMAP.md
 QUEUED_ARCH_IDS = (
     "internlm2_20b", "qwen3_1p7b", "gemma3_4b", "mistral_large_123b",
-    "olmoe_1b_7b", "kimi_k2_1t_a32b", "internvl2_2b", "whisper_large_v3",
+    "olmoe_1b_7b", "kimi_k2_1t_a32b", "internvl2_2b",
 )
 
 _ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS + QUEUED_ARCH_IDS}

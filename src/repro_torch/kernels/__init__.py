@@ -25,7 +25,7 @@ import torch
 
 _LAUNCHES: Dict[str, int] = {"rowhash": 0, "hash_neighbor_flags": 0,
                              "radix_partition": 0, "rwkv6": 0,
-                             "mamba2_ssd": 0}
+                             "mamba2_ssd": 0, "flash_attention": 0}
 
 
 def count_launch(name: str) -> None:

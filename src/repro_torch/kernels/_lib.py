@@ -27,8 +27,9 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
-_vp, _i32, _i64, _u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                         ctypes.c_ulonglong)
+_vp, _i32, _i64, _u64, _f32 = (ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_longlong, ctypes.c_ulonglong,
+                               ctypes.c_float)
 #: C entry points and their argument types (every pointer and the stream
 #: are ``c_void_p``; each function returns ``cudaGetLastError()``)
 SIGNATURES = {
@@ -46,15 +47,15 @@ SIGNATURES = {
     # xdt, la, b, c, s0, y, s_out, b, h, t, p, n, chunk, dtype, device,
     # stream
     "mapsdi_mamba2_ssd": [_vp] * 7 + [_i32] * 8 + [_vp],
+    # q, k, v, o, b, h, kh, sq, sk, d, kv_len, causal, window, scale, dtype,
+    # device, stream
+    "mapsdi_flash_attention": [_vp] * 4 + [_i32] * 9 + [_f32, _i32, _i32,
+                                                        _vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last build took (0.0 when an existing library was loaded)
 last_build_seconds = 0.0
-
-
-def _sources() -> List[Path]:
-    return sorted(CSRC.glob("*.cu"))
 
 
 def _digest() -> str:
@@ -76,6 +77,18 @@ def _nvcc() -> str:
                        "CUDA toolkit on the machine with the card")
 
 
+def compile_command(src: Path, obj: Path, *extra: str) -> List[str]:
+    """The ``nvcc`` command that compiles one source into ``obj`` (``extra``
+    flags go before the source, e.g. ``-Xptxas -v``)."""
+    return [_nvcc(), *ARCH_FLAGS, *CFLAGS, *extra, "-I", str(CSRC), "-c",
+            str(src), "-o", str(obj)]
+
+
+def sources() -> List[Path]:
+    """The CUDA sources the library is built from."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def build() -> Path:
     """Compile (if needed) and return the path of the shared library."""
     global last_build_seconds
@@ -89,11 +102,10 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         objs = []
-        for src in _sources():
+        for src in sources():
             obj = Path(tmp) / (src.stem + ".o")
             objs.append(obj)
-            cmd = [nvcc, *ARCH_FLAGS, *CFLAGS, "-I", str(CSRC), "-c",
-                   str(src), "-o", str(obj)]
+            cmd = compile_command(src, obj)
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

@@ -1,0 +1,64 @@
+"""Wrapper around the CUDA flash-attention kernel
+(``csrc/flash_attention.cu``).
+
+It checks its inputs, allocates the output with ``torch.empty``, launches
+on the current stream without synchronising, raises if the launch
+reported a CUDA error, and adds one to its launch count.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
+
+#: head sizes the kernel is compiled for (every ``d_head`` of the configs,
+#: and the reduced configs' 16)
+HEAD_SIZES = (16, 32, 64, 80, 112, 128, 256)
+
+
+def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True,
+                           window: Optional[int] = None,
+                           scale: Optional[float] = None,
+                           kv_len: Optional[int] = None) -> torch.Tensor:
+    """q [B,H,Sq,D], k/v [B,KH,Sk,D] (one dtype: float32 or bfloat16) ->
+    o [B,H,Sq,D] in that dtype, on the card; semantics of
+    :func:`.ref.attention_ref`."""
+    what = "flash_attention"
+    refuse_grad(what, q, k, v)
+    b, h, s_q, d = q.shape
+    _, kh, s_k, _ = k.shape
+    if tuple(k.shape) != (b, kh, s_k, d) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"{what}: k and v must be [B, KH, Sk, D] with q's "
+                         "B and D")
+    if kh == 0 or h % kh:
+        raise ValueError(f"{what}: {h} query heads do not group over {kh} kv "
+                         "heads")
+    if d not in HEAD_SIZES:
+        raise ValueError(f"{what}: the kernel takes head sizes {HEAD_SIZES}, "
+                         f"got {d}")
+    if b * h > 65535:
+        raise ValueError(f"{what}: at most 65535 (batch, head) pairs")
+    kv = s_k if kv_len is None else int(kv_len)
+    if not 0 <= kv <= s_k:
+        raise ValueError(f"{what}: kv_len {kv} outside [0, {s_k}]")
+    for x in (q, k, v):
+        if x.device != q.device or x.device.type != "cuda":
+            raise ValueError(f"{what}: CUDA tensors on one device required")
+        if x.dtype != q.dtype:
+            raise ValueError(f"{what}: q, k and v must share a dtype")
+    code = float_code(q, what)
+    q, k, v = (x.contiguous() for x in (q, k, v))
+    o = torch.empty_like(q)
+    if o.numel() == 0:
+        return o
+    scale = d ** -0.5 if scale is None else float(scale)
+    rc = _lib.lib().mapsdi_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kh,
+        s_q, s_k, d, kv, int(causal), int(window or 0), scale, code,
+        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+    _lib.check(rc, what)
+    count_launch(what)
+    return o

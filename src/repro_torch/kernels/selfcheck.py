@@ -4,7 +4,8 @@ the CUDA-only tests.
 Each case feeds the same CUDA tensors to a kernel's wrapper and to its
 plain PyTorch version and counts the output elements that differ. For the
 integer kernels (``cases``) the comparison is bit for bit (tolerance 0).
-For the float recurrences (``recurrence_cases``) an element passes when
+For the float kernels (``recurrence_cases``, ``attention_cases``) an
+element passes when
 ``|kernel - plain| <= rtol * |plain| + atol_frac * max|plain|``: both
 compute in float32 and differ in summation order and in the last bit of
 ``exp``/``log``; a bfloat16 output may then round to the neighbouring
@@ -22,6 +23,8 @@ import torch
 from repro_torch.relalg.guard import host_int
 from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
 
+from .flash_attention.kernel import flash_attention_kernel
+from .flash_attention.ref import attention_ref
 from .mamba2.kernel import mamba2_ssd_kernel
 from .mamba2.ref import mamba2_ssd_ref
 from .radix_partition.kernel import radix_partition_kernel
@@ -259,6 +262,75 @@ def recurrence_cases(device: torch.device,
     add_ssd("la = 0 (no decay)", 1, 2, 128, la=0.0, dtype=torch.float32)
     add_ssd("la = -80 (decay to 0)", 1, 2, 128, la=-80.0,
             dtype=torch.float32)
+    return out
+
+
+def attention_inputs(device, b: int, h: int, kh: int, s_q: int, s_k: int,
+                     d: int, *, dtype=torch.bfloat16, seed: int = 0):
+    """(q [B,H,Sq,D], k, v [B,KH,Sk,D]): standard normal entries, as the
+    reference's kernel tests draw them."""
+    rng = np.random.default_rng(seed)
+
+    def mk(shape):
+        return torch.from_numpy(rng.normal(0, 1, shape).astype(
+            np.float32)).to(device, dtype)
+
+    return mk((b, h, s_q, d)), mk((b, kh, s_k, d)), mk((b, kh, s_k, d))
+
+
+#: the flash kernel's shapes on the models' paths: (label, B, H, KH, Sq,
+#: Sk, D, causal)
+ATTENTION_PATH_SHAPES = (
+    ("whisper encoder", 4, 20, 20, 1500, 1500, 64, False),
+    ("whisper decoder", 4, 20, 20, 448, 448, 64, True),
+    ("zamba2 shared block", 2, 32, 32, 2048, 2048, 80, True),
+)
+
+
+def attention_cases(device: torch.device,
+                    path_shapes=ATTENTION_PATH_SHAPES,
+                    seed: int = 0) -> List[Case]:
+    """The flash kernel at the paths' shapes in bfloat16 (the models'
+    dtype), and at the edge cases in float32 and bfloat16: the reference
+    kernel tests' MHA, GQA 2:1, MQA, windows 32 and 128, a kv_len mask
+    with Sq = 1 and S = 200 (not a tile multiple); non-causal, every head
+    size the kernel takes, Sq < Sk with kv_len < Sk, a window narrower
+    than a tile, and rows that no key reaches (kv_len < Sq, kv_len = 0)."""
+    out: List[Case] = []
+
+    def add(label, b, h, kh, s_q, s_k, d, dtype=torch.float32, **kw):
+        x = attention_inputs(device, b, h, kh, s_q, s_k, d, dtype=dtype,
+                             seed=seed + len(out))
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        out.append(Case("flash_attention", f"{label} {name}",
+                        lambda: flash_attention_kernel(*x, **kw),
+                        lambda: attention_ref(*x, **kw)))
+
+    for label, b, h, kh, s_q, s_k, d, causal in path_shapes:
+        add(f"path {label} B={b} H={h} S={s_q} D={d}", b, h, kh, s_q, s_k,
+            d, torch.bfloat16, causal=causal)
+    for dtype in (torch.float32, torch.bfloat16):
+        add("MHA S=256", 1, 4, 4, 256, 256, 64, dtype)
+        add("GQA 2:1 S=128", 2, 4, 2, 128, 128, 64, dtype)
+        add("MQA S=256 D=32", 1, 8, 1, 256, 256, 32, dtype)
+        add("window 32", 1, 2, 2, 256, 256, 64, dtype, window=32)
+        add("window 128", 1, 2, 2, 256, 256, 64, dtype, window=128)
+        add("Sq=1 kv_len=200 non-causal", 1, 2, 2, 1, 384, 64, dtype,
+            causal=False, kv_len=200)
+        add("S=200 (not a tile multiple)", 1, 2, 2, 200, 200, 64, dtype)
+        add("non-causal S=200 D=80", 2, 3, 3, 200, 200, 80, dtype,
+            causal=False)
+        add("D=80 causal S=150", 1, 4, 2, 150, 150, 80, dtype)
+        add("Sq=100 < Sk=300 kv_len=250 causal", 1, 2, 1, 100, 300, 64,
+            dtype, kv_len=250)
+        add("window 5 < tile kv_len=90 Sq=70", 1, 2, 2, 70, 130, 64, dtype,
+            window=5, kv_len=90)
+        add("rows no key reaches: kv_len=40 < Sq=100", 1, 2, 2, 100, 64, 64,
+            dtype, kv_len=40)
+        add("kv_len=0", 1, 2, 2, 10, 64, 64, dtype, causal=False, kv_len=0)
+        add("Sq=1 causal decode Sk=77", 2, 4, 2, 1, 77, 128, dtype)
+        for d in (16, 112, 256):
+            add(f"D={d} S=130", 1, 2, 2, 130, 130, d, dtype)
     return out
 
 

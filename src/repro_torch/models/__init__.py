@@ -1,18 +1,20 @@
 """Model registry: ``get_model(family)`` returns the family module
-(``param_specs`` / ``apply``). The port runs the ``rwkv`` and ``hybrid``
+(``param_specs`` / ``apply`` / ``cache_specs`` / ``prefill`` /
+``decode_step``). The port runs the ``rwkv``, ``hybrid`` and ``encdec``
 families; the others are queued in ROADMAP.md."""
 from __future__ import annotations
 
 from types import ModuleType
 
-from . import rwkv6, zamba2
+from . import encdec, rwkv6, zamba2
 
 MODEL_FAMILIES = {
     "rwkv": rwkv6,
     "hybrid": zamba2,
+    "encdec": encdec,
 }
 #: the JAX package's other families, not ported yet
-QUEUED_FAMILIES = ("dense", "moe", "encdec", "vlm")
+QUEUED_FAMILIES = ("dense", "moe", "vlm")
 
 
 def get_model(family: str) -> ModuleType:

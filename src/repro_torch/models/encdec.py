@@ -1,0 +1,218 @@
+"""Whisper-style encoder-decoder (the ``encdec`` family) — whisper-large-v3.
+
+The conv frontend is a stub, as in the JAX package: the model takes
+precomputed frame embeddings [B, n_enc_frames, d_model] (what the two
+conv layers would emit). Encoder: non-causal self-attention, GELU MLP,
+sinusoidal positions. Decoder: causal self-attention + cross-attention to
+the encoder output, learned positions. LayerNorm (with bias) throughout,
+MHA (n_kv_heads == n_heads), no rope.
+
+The full-sequence self-attention of the encoder and of the training
+decoder runs the flash kernel on the card (``kernels/flash_attention``;
+the reference's ``use_pallas=True`` route); cached self-attention and
+cross-attention take the plain paths, as the reference hard-codes.
+Layers are a Python loop over the stacked ``[L]`` weights.
+
+Decode state: per-layer self KV cache (grows, updated in place by
+``decode_step``) + per-layer cross K/V (computed once at prefill from the
+encoder output); ``index`` is a 0-d device tensor.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.distributed.sharding import ParamSpec
+
+from .layers import (Params, attention, attn_out, attn_specs, cache_update,
+                     embed, embed_specs, gelu, layer_norm, layer_params, mlp,
+                     mlp_specs, sinusoidal_positions, stack_specs, unembed)
+
+F32 = torch.float32
+#: rows of the learned decoder positions
+MAX_DEC_POS = 32768
+
+
+def _ln(d: int) -> Params:
+    return {"w": ParamSpec((d,), F32, "ones"),
+            "b": ParamSpec((d,), F32, "zeros")}
+
+
+def _qkv_noro(p: Params, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    q = torch.einsum("bsd,dhk->bhsk", x, p["wq"])
+    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"])
+    return q, k, v
+
+
+def _norm(x: torch.Tensor, p: Params) -> torch.Tensor:
+    return layer_norm(x, p["w"], p["b"])
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def enc_layer_specs(cfg) -> Params:
+    return {"ln_attn": _ln(cfg.d_model),
+            "attn": attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                               cfg.d_head),
+            "ln_mlp": _ln(cfg.d_model),
+            "mlp": mlp_specs(cfg.d_model, cfg.d_ff, gated=False)}
+
+
+def dec_layer_specs(cfg) -> Params:
+    s = enc_layer_specs(cfg)
+    s["ln_cross"] = _ln(cfg.d_model)
+    s["cross"] = attn_specs(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                            cfg.d_head)
+    return s
+
+
+def param_specs(cfg) -> Params:
+    return {
+        "embed": embed_specs(cfg.vocab_padded, cfg.d_model, tied=True),
+        "dec_pos": ParamSpec((MAX_DEC_POS, cfg.d_model), torch.bfloat16,
+                             "normal", 0.01),
+        "enc": {"layers": stack_specs(enc_layer_specs(cfg), cfg.n_layers),
+                "ln_f": _ln(cfg.d_model)},
+        "dec": {"layers": stack_specs(dec_layer_specs(cfg), cfg.n_layers),
+                "ln_f": _ln(cfg.d_model)},
+    }
+
+
+# ---------------------------------------------------------------------------
+# encoder
+# ---------------------------------------------------------------------------
+
+def encode(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """frames [B, n_enc_frames, d_model] (stub frontend output), cast to
+    the weights' dtype: bf16 as in the reference (whose encoder runs in
+    bf16 only), or float32 for float32 weights."""
+    x = frames.to(params["embed"]["embedding"].dtype)
+    x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                 x.device)[None].to(x.dtype)
+    for i in range(cfg.n_layers):
+        p = layer_params(params["enc"]["layers"], i)
+        q, k, v = _qkv_noro(p["attn"], _norm(x, p["ln_attn"]))
+        o = attention(q, k, v, causal=False, use_pallas=True)
+        x = x + attn_out(p["attn"], o)
+        x = x + mlp(p["mlp"], _norm(x, p["ln_mlp"]), act=gelu)
+    return _norm(x, params["enc"]["ln_f"])
+
+
+# ---------------------------------------------------------------------------
+# decoder
+# ---------------------------------------------------------------------------
+
+def _dec_layer(cfg, p: Params, x: torch.Tensor, enc_kv, self_kv, index,
+               kv_len):
+    """enc_kv = (ek, ev) cross K/V [B,H,Senc,Dh]; self_kv None (train, full
+    causal: the flash kernel) or (ck, cv) cache slices."""
+    q, k, v = _qkv_noro(p["attn"], _norm(x, p["ln_attn"]))
+    if self_kv is None:
+        o = attention(q, k, v, causal=True, use_pallas=True)
+        new_self = None
+    else:
+        ck, cv = cache_update(self_kv[0], self_kv[1], k, v, index)
+        o = attention(q, ck, cv, causal=True, kv_len=kv_len,
+                      use_pallas=False)
+        new_self = (ck, cv)
+    x = x + attn_out(p["attn"], o)
+
+    cq = torch.einsum("bsd,dhk->bhsk", _norm(x, p["ln_cross"]),
+                      p["cross"]["wq"])
+    o = attention(cq, enc_kv[0], enc_kv[1], causal=False, use_pallas=False)
+    x = x + attn_out(p["cross"], o)
+
+    x = x + mlp(p["mlp"], _norm(x, p["ln_mlp"]), act=gelu)
+    return x, new_self
+
+
+def cross_kv(cfg, params: Params, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross K/V for all decoder layers: [L, B, H, Senc, Dh] each (one
+    product batched over the stacked layers)."""
+    cross = params["dec"]["layers"]["cross"]
+    k = torch.einsum("bsd,ldhk->lbhsk", enc_out, cross["wk"])
+    v = torch.einsum("bsd,ldhk->lbhsk", enc_out, cross["wv"])
+    return k, v
+
+
+def decode_train(cfg, params: Params, tokens: torch.Tensor,
+                 enc_out: torch.Tensor) -> torch.Tensor:
+    x = embed(params["embed"], tokens)
+    x = x + params["dec_pos"][:x.shape[1]][None].to(x.dtype)
+    ek, ev = cross_kv(cfg, params, enc_out)
+    for i in range(cfg.n_layers):
+        x, _ = _dec_layer(cfg, layer_params(params["dec"]["layers"], i), x,
+                          (ek[i], ev[i]), None, None, None)
+    x = _norm(x, params["dec"]["ln_f"])
+    return unembed(params["embed"], x)
+
+
+def apply(cfg, params: Params, tokens: torch.Tensor,
+          frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens [B,S], frames [B,n_enc_frames,d_model] -> logits
+    [B,S,vocab_padded]."""
+    if frames is None:
+        raise ValueError("enc-dec apply() needs `frames`")
+    return decode_train(cfg, params, tokens, encode(cfg, params, frames))
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def cache_specs(cfg, batch: int, max_len: int) -> Params:
+    L = cfg.n_layers
+    kv = ParamSpec((L, batch, cfg.n_kv_heads, max_len, cfg.d_head),
+                   torch.bfloat16, "zeros")
+    ckv = ParamSpec((L, batch, cfg.n_kv_heads, cfg.n_enc_frames, cfg.d_head),
+                    torch.bfloat16, "zeros")
+    return {"k": kv, "v": kv, "ek": ckv, "ev": ckv,
+            "index": ParamSpec((), torch.int32, "zeros")}
+
+
+def _run_decoder(cfg, params: Params, tokens: torch.Tensor, cache, index):
+    s = tokens.shape[1]
+    x = embed(params["embed"], tokens)
+    pos_ids = torch.clamp(index + torch.arange(s, device=x.device),
+                          max=MAX_DEC_POS - 1)
+    x = x + params["dec_pos"][pos_ids][None].to(x.dtype)
+    kv_len = index + s
+    for i in range(cfg.n_layers):
+        x, _ = _dec_layer(cfg, layer_params(params["dec"]["layers"], i), x,
+                          (cache["ek"][i], cache["ev"][i]),
+                          (cache["k"][i], cache["v"][i]), index, kv_len)
+    x = _norm(x, params["dec"]["ln_f"])
+    return unembed(params["embed"], x[:, -1:])
+
+
+def prefill(cfg, params: Params, tokens: torch.Tensor,
+            frames: Optional[torch.Tensor] = None):
+    """tokens [B,S], frames -> (last-position logits [B,1,V], cache of
+    length S)."""
+    if frames is None:
+        raise ValueError("enc-dec prefill() needs `frames`")
+    b, s = tokens.shape
+    dev = tokens.device
+    ek, ev = cross_kv(cfg, params, encode(cfg, params, frames))
+    kv = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.d_head)
+    index = torch.zeros((), dtype=torch.int32, device=dev)
+    cache = {"k": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+             "v": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
+             "ek": ek.to(torch.bfloat16), "ev": ev.to(torch.bfloat16),
+             "index": index}
+    logits = _run_decoder(cfg, params, tokens, cache, index)
+    return logits, dict(cache, index=index + s)
+
+
+def decode_step(cfg, params: Params, cache, tokens: torch.Tensor):
+    """tokens [B,1] -> (logits [B,1,V], cache one position longer; its
+    self K/V are updated in place)."""
+    index = cache["index"]
+    logits = _run_decoder(cfg, params, tokens, cache, index)
+    return logits, dict(cache, index=index + tokens.shape[1])

@@ -7,6 +7,10 @@ card its constraints are no-ops.
 
 Dtypes follow the reference op for op: bf16 activations and weights,
 norms, softmax and activations computed in float32 and cast back.
+
+A decode position (``index``, ``kv_len``) may be a 0-d device tensor:
+the masks, positions and cache writes built from it stay on the device,
+so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
+from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
@@ -91,19 +96,28 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-torch.log(torch.tensor(10000.0)) * torch.arange(
+        0, d, 2, dtype=torch.float32, device=device) / d)
+    ang = pos * inv[None]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
-# attention (blockwise online softmax, plain PyTorch)
+# attention (blockwise online softmax and decode shapes in plain PyTorch;
+# the flash kernel on the card)
 # ---------------------------------------------------------------------------
 
 def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: Optional[int] = None,
-                        kv_len: Optional[int] = None,
-                        scale: Optional[float] = None,
+                        kv_len=None, scale: Optional[float] = None,
                         block_k: int = 1024) -> torch.Tensor:
     """Online-softmax attention over kv blocks (O(S·block) live memory).
 
     q [B,H,Sq,D]; k/v [B,KH,Sk,D]; GQA by head groups; q rows sit at the
-    end of the kv timeline (``kv_len - Sq``); ``window`` 0/None => full.
+    end of the kv timeline (``kv_len - Sq``; an int or a 0-d tensor);
+    ``window`` 0/None => full.
     """
     b, h, s_q, d = q.shape
     _, kh, s_k, _ = k.shape
@@ -111,7 +125,12 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{h} query heads do not group over {kh} kv heads")
     group = h // kh
     scale = (d ** -0.5) if scale is None else scale
-    kv_len = s_k if kv_len is None else min(s_k, kv_len)
+    if kv_len is None:
+        kv_len = s_k
+    elif isinstance(kv_len, torch.Tensor):
+        kv_len = torch.clamp(kv_len, max=s_k)
+    else:
+        kv_len = min(s_k, kv_len)
     window = window or 0
     q_off = kv_len - s_q
     if s_k % block_k:     # pad kv to a block multiple; kv_len masks the tail
@@ -149,13 +168,50 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def dense_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *,
+                           window: Optional[int] = None, kv_len=None,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Decode-shape attention (small Sq): one masked product over the whole
+    kv timeline. Causal; ``kv_len`` (int or 0-d tensor) masks the unwritten
+    cache tail. k/v stay in their dtype and are promoted per product."""
+    b, h, s_q, d = q.shape
+    _, kh, s_k, _ = k.shape
+    group = h // kh
+    scale = (d ** -0.5) if scale is None else scale
+    kv_len = s_k if kv_len is None else kv_len
+    dev = q.device
+    qf = (q.float() * scale).reshape(b, kh, group * s_q, d)
+    s = qf @ k.float().transpose(-1, -2)
+    k_pos = torch.arange(s_k, device=dev)
+    q_pos = kv_len - s_q + torch.arange(s_q, device=dev)
+    qp = q_pos.repeat(group)[:, None]
+    mask = (k_pos[None, :] < kv_len) & (qp >= k_pos[None, :])
+    if window is not None and window > 0:
+        mask = mask & ((qp - k_pos[None, :]) < window)
+    s = torch.where(mask, s, MASK_VALUE)
+    p = torch.where(mask, torch.softmax(s, dim=-1), 0.0)
+    out = p @ v.float()
+    return out.reshape(b, h, s_q, d).to(q.dtype)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: Optional[int] = None,
-              kv_len: Optional[int] = None, scale: Optional[float] = None,
+              causal: bool = True, window=None, kv_len=None,
+              scale: Optional[float] = None, use_pallas: bool = False,
               block_k: int = 1024) -> torch.Tensor:
-    """Model-facing attention: the blockwise path. The reference's flash
-    kernel branch (``use_pallas`` with a static window) and its decode
-    branch are not ported yet (ROADMAP.md Queue 1 item 7, Queue 2)."""
+    """Model-facing attention, the reference's branches in its order:
+    the dense path for decode shapes (Sq <= 8, causal, Sk > Sq); with
+    ``use_pallas`` and a static window (a Python int or None) the flash
+    kernel (``kernels.flash_attention``: the CUDA kernel on the card, its
+    plain version on the CPU); the blockwise path otherwise. The models
+    pass ``use_pallas=True`` where the reference passes
+    ``cfg.use_pallas or False``, and False where it hard-codes False."""
+    if q.shape[2] <= 8 and causal and k.shape[2] > q.shape[2]:
+        return dense_decode_attention(q, k, v, window=window, kv_len=kv_len,
+                                      scale=scale)
+    if use_pallas and isinstance(window, (int, type(None))):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale, kv_len=kv_len)
     bk = min(block_k, k.shape[2])
     return blockwise_attention(q, k, v, causal=causal, window=window,
                                kv_len=kv_len, scale=scale, block_k=bk)
@@ -214,6 +270,11 @@ def mlp_specs(d_model: int, d_ff: int, gated: bool = True) -> Params:
     return s
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp(p: Params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
     up = x @ p["w_up"]
     if "w_gate" in p:
@@ -263,3 +324,31 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# ---------------------------------------------------------------------------
+# KV cache helpers (decode)
+# ---------------------------------------------------------------------------
+
+def kv_cache_specs(n_layers: int, batch: int, n_kv_heads: int, max_len: int,
+                   d_head: int, dtype=torch.bfloat16) -> Params:
+    """Stacked [L, B, KH, S, Dh] cache + write index."""
+    kv = ParamSpec((n_layers, batch, n_kv_heads, max_len, d_head), dtype,
+                   "zeros")
+    return {"k": kv, "v": kv, "index": ParamSpec((), torch.int32, "zeros")}
+
+
+def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                 k: torch.Tensor, v: torch.Tensor, index
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write k/v [B,KH,S_new,Dh] at position ``index`` (an int or a 0-d
+    tensor) of one layer's cache [B,KH,S_max,Dh], clamped to fit as
+    ``lax.dynamic_update_slice`` clamps it. The cache is updated in place
+    (the reference's jit does the same to its buffer) and returned."""
+    s_new, s_max = k.shape[2], cache_k.shape[2]
+    start = torch.clamp(torch.as_tensor(index, device=cache_k.device),
+                        0, s_max - s_new)
+    pos = start + torch.arange(s_new, device=cache_k.device)
+    cache_k.index_copy_(2, pos, k.to(cache_k.dtype))
+    cache_v.index_copy_(2, pos, v.to(cache_v.dtype))
+    return cache_k, cache_v

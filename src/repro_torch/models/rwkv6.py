@@ -5,9 +5,8 @@ Block = time-mix (WKV6 recurrence over [H, N, N] states) + channel-mix
 lerp); the decay ``w`` is data-dependent via a small LoRA. The WKV6
 recurrence runs the CUDA kernel on the card (``kernels/rwkv6``).
 
-The port has the full-sequence forward ``apply``; the serving entry
-points (``cache_specs``/``prefill``/``decode_step``) are queued in
-ROADMAP.md.
+Serving: ``prefill`` runs the prompt from zero state and returns the
+token-shift and WKV states; ``decode_step`` carries them one token on.
 """
 from __future__ import annotations
 
@@ -16,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.rwkv6 import rwkv6 as wkv6
 
 from .layers import (Params, embed, embed_specs, layer_norm, layer_params,
@@ -159,3 +158,49 @@ def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         x, _ = block_fwd(cfg, layer_params(params["layers"], i), x, None)
     x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
     return unembed(params["embed"], x)
+
+
+def cache_specs(cfg, batch: int, max_len: int) -> Params:
+    d = cfg.d_model
+    n = cfg.ssm_head_dim
+    h = d // n
+    L = cfg.n_layers
+    return {
+        "shift_t": ParamSpec((L, batch, d), torch.bfloat16, "zeros"),
+        "shift_c": ParamSpec((L, batch, d), torch.bfloat16, "zeros"),
+        "wkv": ParamSpec((L, batch, h, n, n), F32, "zeros"),
+        "index": ParamSpec((), torch.int32, "zeros"),
+    }
+
+
+def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
+    x = embed(params["embed"], tokens)
+    x = layer_norm(x, params["ln_in"]["w"], params["ln_in"]["b"])
+    st, sc, wkv = [], [], []
+    for i in range(cfg.n_layers):
+        x, (st_i, sc_i, wkv_i) = block_fwd(
+            cfg, layer_params(params["layers"], i), x,
+            (cache["shift_t"][i], cache["shift_c"][i], cache["wkv"][i]))
+        st.append(st_i)
+        sc.append(sc_i)
+        wkv.append(wkv_i)
+    x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
+    logits = unembed(params["embed"], x[:, -1:])
+    return logits, {
+        "shift_t": torch.stack(st).to(cache["shift_t"].dtype),
+        "shift_c": torch.stack(sc).to(cache["shift_c"].dtype),
+        "wkv": torch.stack(wkv),
+        "index": cache["index"] + tokens.shape[1]}
+
+
+def prefill(cfg, params: Params, tokens: torch.Tensor):
+    """tokens [B,S] -> (last-position logits [B,1,V], recurrent state)."""
+    zero = spec_tree_map(
+        lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=tokens.device),
+        cache_specs(cfg, tokens.shape[0], tokens.shape[1]))
+    return _run_with_state(cfg, params, tokens, zero)
+
+
+def decode_step(cfg, params: Params, cache, tokens: torch.Tensor):
+    """tokens [B,1] -> (logits [B,1,V], state one token on)."""
+    return _run_with_state(cfg, params, tokens, cache)

@@ -5,11 +5,14 @@ its own parameters reused at every invocation) runs at the start of each
 group on ``concat(hidden, original_embedding)`` projected back to d_model.
 Mamba2 parameters are stacked [groups, layers per group, ...] as in the
 JAX package; the port loops over them. The SSD scan runs the CUDA kernel
-on the card (``kernels/mamba2``).
+on the card (``kernels/mamba2``), and so does the shared block's
+full-sequence attention (``kernels/flash_attention``, the reference's
+``use_pallas=True`` route).
 
-The port has the full-sequence forward ``apply``; the serving entry
-points (``cache_specs``/``prefill``/``decode_step``) are queued in
-ROADMAP.md.
+Serving: ``prefill`` fills the conv/SSD states and the shared block's
+per-group KV cache; ``decode_step`` appends one token. The cache's
+``index`` is a 0-d device tensor. ``decode_step`` updates the KV cache
+in place.
 """
 from __future__ import annotations
 
@@ -18,12 +21,12 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.mamba2 import mamba2_ssd
 
 from .layers import (Params, attention, attn_out, attn_qkv, attn_specs,
-                     embed, embed_specs, layer_params, mlp, mlp_specs,
-                     norm_specs, rms_norm, stack_specs, unembed)
+                     cache_update, embed, embed_specs, layer_params, mlp,
+                     mlp_specs, norm_specs, rms_norm, stack_specs, unembed)
 
 CONV_K = 4
 F32 = torch.float32
@@ -140,20 +143,29 @@ def mamba_block(cfg, p: Params, x: torch.Tensor, state
 # ---------------------------------------------------------------------------
 
 def shared_block(cfg, p: Params, x: torch.Tensor, x0: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """The full-sequence form (the reference's ``kv=None`` branch)."""
+                 positions: torch.Tensor, kv=None, index=None, kv_len=None
+                 ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """kv = (ck, cv), one invocation's cache slice, or None for the
+    full-sequence form (the flash kernel's path)."""
     cat = torch.cat([x, x0], dim=-1)
     hin = cat @ p["in_proj"]
     hin = rms_norm(hin, p["ln_attn"])
     q, k, v = attn_qkv(p["attn"], hin, positions, rope_theta=cfg.rope_theta)
-    o = attention(q, k, v, causal=True)
+    if kv is None:
+        o = attention(q, k, v, causal=True, use_pallas=True)
+        new_kv = None
+    else:
+        ck, cv = cache_update(kv[0], kv[1], k, v, index)
+        o = attention(q, ck, cv, causal=True, kv_len=kv_len,
+                      use_pallas=False)
+        new_kv = (ck, cv)
     hin = hin + attn_out(p["attn"], o)
     hin = hin + mlp(p["mlp"], rms_norm(hin, p["ln_mlp"]))
-    return x + hin @ p["out_proj"]
+    return x + hin @ p["out_proj"], new_kv
 
 
 # ---------------------------------------------------------------------------
-# entry point
+# entry points
 # ---------------------------------------------------------------------------
 
 def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
@@ -162,9 +174,71 @@ def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
     x0 = x
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for g in range(n_groups(cfg)):
-        x = shared_block(cfg, params["shared"], x, x0, positions)
+        x, _ = shared_block(cfg, params["shared"], x, x0, positions)
         for i in range(cfg.shared_attn_every):
             x, _ = mamba_block(cfg, layer_params(params["groups"], g, i), x,
                                (None, None))
     x = rms_norm(x, params["ln_f"])
     return unembed(params["embed"], x)
+
+
+def cache_specs(cfg, batch: int, max_len: int) -> Params:
+    g = n_groups(cfg)
+    e = cfg.shared_attn_every
+    di, nst = cfg.d_inner, cfg.ssm_state
+    h = di // cfg.ssm_head_dim
+    conv_ch = di + 2 * nst
+    kv = ParamSpec((g, batch, cfg.n_kv_heads, max_len, cfg.d_head),
+                   torch.bfloat16, "zeros")
+    return {
+        "conv": ParamSpec((g, e, batch, CONV_K - 1, conv_ch), torch.bfloat16,
+                          "zeros"),
+        "ssd": ParamSpec((g, e, batch, h, nst, cfg.ssm_head_dim), F32,
+                         "zeros"),
+        "k": kv, "v": kv,
+        "x0": ParamSpec((batch, 1, cfg.d_model), torch.bfloat16, "zeros"),
+        "index": ParamSpec((), torch.int32, "zeros"),
+    }
+
+
+def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
+    x = embed(params["embed"], tokens)
+    # the concat-skip takes this call's embedding (the reference's x0)
+    x0 = x
+    index = cache["index"]
+    s = tokens.shape[1]
+    positions = index + torch.arange(s, device=x.device)[None, :]
+    kv_len = index + s
+    conv, ssd = [], []
+    for g in range(n_groups(cfg)):
+        x, _ = shared_block(cfg, params["shared"], x, x0, positions,
+                            (cache["k"][g], cache["v"][g]), index, kv_len)
+        for i in range(cfg.shared_attn_every):
+            conv_in = cache["conv"][g, i]
+            x, (cv_out, sd_out) = mamba_block(
+                cfg, layer_params(params["groups"], g, i), x,
+                (conv_in, cache["ssd"][g, i]))
+            conv.append(cv_out.to(conv_in.dtype))
+            ssd.append(sd_out)
+    x = rms_norm(x, params["ln_f"])
+    logits = unembed(params["embed"], x[:, -1:])
+    shape = (n_groups(cfg), cfg.shared_attn_every)
+    return logits, {
+        "conv": torch.stack(conv).reshape(shape + conv[0].shape),
+        "ssd": torch.stack(ssd).reshape(shape + ssd[0].shape),
+        "k": cache["k"], "v": cache["v"],     # updated in place
+        "x0": x0[:, -1:].to(torch.bfloat16),
+        "index": index + s}
+
+
+def prefill(cfg, params: Params, tokens: torch.Tensor):
+    """tokens [B,S] -> (last-position logits [B,1,V], cache of length S)."""
+    zero = spec_tree_map(
+        lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=tokens.device),
+        cache_specs(cfg, tokens.shape[0], tokens.shape[1]))
+    return _run_with_state(cfg, params, tokens, zero)
+
+
+def decode_step(cfg, params: Params, cache, tokens: torch.Tensor):
+    """tokens [B,1] -> (logits [B,1,V], cache one position longer)."""
+    return _run_with_state(cfg, params, tokens, cache)

@@ -18,13 +18,16 @@ Batch = Dict[str, torch.Tensor]
 
 
 def make_loss_fn(cfg) -> Callable:
-    """(params, batch) -> 0-d float32 loss. Batch keys (the rwkv and
-    hybrid families): tokens, labels [B,S] (+ loss_mask)."""
+    """(params, batch) -> 0-d float32 loss. Batch keys: tokens, labels
+    [B,S] (+ loss_mask); encdec: + frames [B,n_enc_frames,d_model]."""
     model = get_model(cfg.family)
 
     def loss_fn(params, batch: Batch) -> torch.Tensor:
+        kwargs = {}
+        if cfg.family == "encdec":
+            kwargs["frames"] = batch["frames"]
         with torch.inference_mode():
-            logits = model.apply(cfg, params, batch["tokens"])
+            logits = model.apply(cfg, params, batch["tokens"], **kwargs)
             return softmax_xent(logits, batch["labels"],
                                 batch.get("loss_mask"), cfg.vocab_size)
 

@@ -223,7 +223,7 @@ def test_dispatch_on_cpu_takes_plain_version_and_launches_nothing():
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     assert launch_counts() == {"rowhash": 0, "hash_neighbor_flags": 0,
                                "radix_partition": 0, "rwkv6": 0,
-                               "mamba2_ssd": 0}
+                               "mamba2_ssd": 0, "flash_attention": 0}
 
 
 def test_kernel_wrappers_raise_on_cpu_tensors():
