@@ -60,7 +60,13 @@ no result):
    the paths' shapes and at edge cases (``selfcheck.recurrence_cases``
    and ``selfcheck.attention_cases``, tolerances stated there), then
    their device times beside the bound (``recurrence_work``,
-   ``attention_work``) and, for flash attention, beside
+   ``recurrence_bound``, ``attention_work``): for the recurrences the
+   bound of the units their bf16 route uses (products on the tensor
+   cores, with the split passes the tolerance needs), beside the float32
+   bound of earlier runs, each recurrence's time at the decode shape
+   (``RECURRENCE_DECODE``) too, and the device time of each CUDA kernel
+   a recurrence call launches (``torch.profiler``); for flash attention,
+   beside
    ``F.scaled_dot_product_attention`` at the same shape (the library
    yardstick; the port never calls it).
 7. A ``{"kernels": [...]}`` JSON line for all six kernels, then as the
@@ -388,6 +394,24 @@ def device_ms(torch, calls, n_calls: int):
         host_bound |= host_ms > slept.elapsed_time(start)
         trials.append(start.elapsed_time(stop) / n_calls)
     return statistics.median(trials), host_bound
+
+
+def cuda_kernel_ms(torch, calls, rounds: int = 5):
+    """Device milliseconds per call of each CUDA kernel the calls launch,
+    from ``torch.profiler`` (None if it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(rounds):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+    n = rounds * len(calls)
+    out = {e.key.split("::")[-1].split("(")[0]: e.device_time_total / n / 1e3
+           for e in prof.key_averages() if e.device_time_total > 0}
+    return out or None
 
 
 def max_abs_err(torch, case) -> float:
@@ -775,46 +799,89 @@ def whisper_bf16(torch, arch, cfg, model, params, batch, cpu_params):
         f"half a bf16 step on the frames {rel(noisy, cpu):.4f}")
 
 
-def recurrence_work(torch, dev, kernel: str):
+#: the decode shape the recurrences are timed at beside the path's: one
+#: serve step of SERVE_BATCH prompts, T = 1 from a state
+RECURRENCE_DECODE = (SERVE_BATCH, 1)
+#: passes each product of the kernels' bf16 route takes on the tensor
+#: cores, as the stated tolerance needs them: a float32 operand is split
+#: into bf16 hi + lo (float32 x bf16: two passes; float32 x float32: three,
+#: hi.hi + hi.lo + lo.hi); bf16 x bf16 is exact in one
+RECURRENCE_PASSES = {
+    "rwkv6": {"scores v": 2, "q S": 3, "kw^T v": 2},
+    "mamba2_ssd": {"scores xdt": 2, "c S": 2, "bw^T xdt": 2, "c b^T": 1}}
+
+
+def recurrence_work(torch, dev, kernel: str, shape=None, state=False):
     """Thunks over input copies for the kernel and its plain version at
-    the forward's shape (bf16), and the bytes, float32 operations and
-    exponentials the function needs. Operations: an FMA counts two; a
-    score's exp(a - b) * r * k counts four plus one exponential; products
-    over a causal triangle count only its lower part (the rest is zero);
-    mamba2's c b^T is shared by the heads of a batch row and counted once
-    per row."""
+    the forward's shape (bf16) or at ``shape`` = (B, T), and the work the
+    function needs: bytes (inputs read once, outputs written once);
+    float32 operations, split by the unit the card could give them to
+    ("products": the matrix products in flop-equivalents, an FMA counting
+    two, times the passes in ``RECURRENCE_PASSES``; "elementwise": the
+    rest, at the float32 CUDA-core rate; "fp32": all of them counted once,
+    the float32 bound of earlier runs); and exponentials. A score's
+    exp(a - b) * r * k counts four elementwise operations plus one
+    exponential; products over a causal triangle count only its lower part
+    (the rest is zero); mamba2's c b^T is shared by the heads of a batch row
+    and counted once per row; its q S is computed as exp(cum) (c S), c
+    being bf16."""
     from repro_torch.kernels import selfcheck
     from repro_torch.kernels.mamba2 import mamba2_ssd_kernel, mamba2_ssd_ref
     from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_kernel
+    passes = RECURRENCE_PASSES[kernel]
     if kernel == "rwkv6":
-        (b, t), h = LM_SHAPE["rwkv6-7b"], 64
+        (b, t), h = shape or LM_SHAPE["rwkv6-7b"], 64
         n, ln = 64, 32
         chunks = b * h * (-(-t // ln))
-        nbytes = (5 * b * h * t * n * 2 + h * n * 4 + b * h * n * n * 4)
+        nbytes = (5 * b * h * t * n * 2 + h * n * 4
+                  + (1 + state) * b * h * n * n * 4)
         tri = ln * (ln - 1) // 2
-        flops = chunks * (4 * tri * n + 2 * tri * n + 4 * ln * n * n
-                          + 8 * ln * n + 2 * n * n)
+        prods = {"scores v": 2 * tri * n, "q S": 2 * ln * n * n,
+                 "kw^T v": 2 * ln * n * n}
+        elementwise = chunks * (4 * tri * n + 8 * ln * n + 2 * n * n)
         exps = chunks * (tri * n + 2 * ln * n + n)
+        products = chunks * sum(prods[k] * passes[k] for k in prods)
+        fp32 = elementwise + chunks * sum(prods.values())
         make, kern, plain = (selfcheck.rwkv6_inputs, rwkv6_kernel,
                              rwkv6_chunked)
     else:
-        (b, t), h = LM_SHAPE["zamba2-2.7b"], 80
+        (b, t), h = shape or LM_SHAPE["zamba2-2.7b"], 80
         n = p = ln = 64
-        chunks = b * h * (-(-t // ln))
+        row_chunks = -(-t // ln)
+        chunks = b * h * row_chunks
         nbytes = (2 * b * h * t * p * 2 + b * h * t * 4 + 2 * b * t * n * 2
-                  + b * h * n * p * 4)
+                  + (1 + state) * b * h * n * p * 4)
         tri = ln * (ln + 1) // 2
-        flops = (chunks * (2 * tri + 2 * tri * p + 4 * ln * n * p
-                           + 3 * ln * n + 2 * n * p)
-                 + b * (-(-t // ln)) * 2 * tri * n)
+        prods = {"scores xdt": 2 * tri * p, "c S": 2 * ln * n * p,
+                 "bw^T xdt": 2 * ln * n * p}
+        cbt = b * row_chunks * 2 * tri * n
+        elementwise = chunks * (2 * tri + 3 * ln * n + 2 * n * p)
         exps = chunks * (tri + 2 * ln + 1)
+        products = (chunks * sum(prods[k] * passes[k] for k in prods)
+                    + cbt * passes["c b^T"])
+        fp32 = elementwise + chunks * sum(prods.values()) + cbt
         make, kern, plain = (selfcheck.ssd_inputs, mamba2_ssd_kernel,
                              mamba2_ssd_ref)
     copies = max(2, -(-2 * L2_BYTES // nbytes))
-    ins = [make(dev, b, h, t, seed=i) for i in range(copies)]
+    ins = [make(dev, b, h, t, state=state, seed=i) for i in range(copies)]
+    work = {"bytes": nbytes, "products": products,
+            "elementwise": elementwise, "exp": exps, "fp32": fp32}
     return ([lambda x=x: kern(*x) for x in ins],
-            [lambda x=x: plain(*x) for x in ins], nbytes, flops, exps,
-            f"B={b} H={h} T={t}")
+            [lambda x=x: plain(*x) for x in ins], work,
+            f"B={b} H={h} T={t}{' from a state' if state else ''}")
+
+
+def recurrence_bound(work):
+    """The least time (ms) the card could take for the work, the unit that
+    sets it, and the float32 bound of earlier runs (every operation at the
+    CUDA-core rate)."""
+    parts = {"bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
+             "bf16 products": work["products"] / BF16_FLOPS_PER_S * 1e3,
+             "fp32 elementwise": work["elementwise"] / FP32_FLOPS_PER_S * 1e3,
+             "exp": work["exp"] / SFU_OPS_PER_S * 1e3}
+    fp32 = max(parts["bytes"], parts["exp"],
+               work["fp32"] / FP32_FLOPS_PER_S * 1e3)
+    return max(parts.values()), parts, fp32
 
 
 def attention_pairs(s_q: int, s_k: int, causal: bool, window=None,
@@ -875,24 +942,37 @@ def lm_kernel_phase(torch, dev):
     check(not any(bad.values()), f"kernel/plain disagreements: {bad}")
     times = {}
     for kernel in ("rwkv6", "mamba2_ssd"):
-        kern, plain, nbytes, flops, exps, shape = recurrence_work(
-            torch, dev, kernel)
+        kern, plain, work, shape = recurrence_work(torch, dev, kernel)
         ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
         plain_ms, p_host = device_ms(torch, plain, TIMING_CALLS["plain"])
-        parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "fp32": flops / FP32_FLOPS_PER_S * 1e3,
-                 "exp": exps / SFU_OPS_PER_S * 1e3}
-        bound = max(parts.values())
+        bound, parts, fp32_bound = recurrence_bound(work)
+        dkern, _, dwork, dshape = recurrence_work(
+            torch, dev, kernel, RECURRENCE_DECODE, state=True)
+        decode_ms, d_host = device_ms(torch, dkern, TIMING_CALLS["kernel"])
+        decode_bound, dparts, _ = recurrence_bound(dwork)
+        split = cuda_kernel_ms(torch, kern)
         times[kernel] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": ("bytes" if parts["bytes"] >= bound
                          else "operations"),
-            "library_ms": None, "host_bound": k_host, "shape": shape}
+            "library_ms": None, "host_bound": k_host, "shape": shape,
+            "fp32_bound_ms": fp32_bound, "decode_ms": decode_ms,
+            "decode_bound_ms": decode_bound, "decode_shape": dshape,
+            "decode_host_bound": d_host, "cuda_kernels_ms": split}
+        detail = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
         log(f"time {kernel:15s} {shape} kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound:.4f} ms (bytes "
-            f"{parts['bytes']:.4f}, fp32 {parts['fp32']:.4f}, exp "
-            f"{parts['exp']:.4f}: {nbytes} B, {flops} flop, {exps} exp)  "
+            f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({detail}: "
+            f"{work['bytes']} B, {work['products']} product flop with "
+            f"passes {json.dumps(RECURRENCE_PASSES[kernel])}, "
+            f"{work['elementwise']} elementwise flop, {work['exp']} exp)  "
+            f"float32 bound {fp32_bound:.4f} ms ({work['fp32']} flop)  "
             f"host-bound kernel {k_host} plain {p_host}")
+        log(f"time {kernel:15s} decode {dshape} kernel {decode_ms:.4f} ms  "
+            f"bound {decode_bound:.4f} ms (bytes {dparts['bytes']:.4f})  "
+            f"host-bound {d_host}")
+        log(f"time {kernel:15s} per CUDA kernel of a call (torch.profiler): "
+            + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+               if split else "not measured (no device time traced)"))
     for shape in selfcheck.ATTENTION_PATH_SHAPES:
         kern, plain, lib, nbytes, flops, exps, label = attention_work(
             torch, dev, shape)
@@ -973,7 +1053,11 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "host_bound": t["host_bound"],
-            "shape": t["shape"]})
+            "shape": t["shape"],
+            **{k: t[k] for k in ("fp32_bound_ms", "decode_ms",
+                                 "decode_bound_ms", "decode_shape",
+                                 "cuda_kernels_ms")
+               if k in t}})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

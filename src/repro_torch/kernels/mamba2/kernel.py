@@ -1,8 +1,10 @@
 """Wrapper around the CUDA Mamba2 SSD kernel (``csrc/mamba2_ssd.cu``).
 
-It checks its inputs, allocates the outputs with ``torch.empty``,
-launches on the current stream without synchronising, raises if the
-launch reported a CUDA error, and adds one to its launch count.
+It checks its inputs, allocates the outputs and the kernel's workspace
+(the bf16 route's c b^T per chunk and per-segment transitions) with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch reported a CUDA error, and adds one to its launch
+count (one call, though the bf16 route runs three CUDA kernels).
 """
 from __future__ import annotations
 
@@ -16,6 +18,10 @@ from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
 CHUNK = 64
 HEAD_DIM = 64
 STATE = 64
+#: chunks per segment on the bf16 route (``kSeg`` in
+#: ``csrc/mamba2_ssd.cu``): segments run in parallel, joined by their
+#: transitions
+SEGMENT_CHUNKS = 4
 
 
 def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
@@ -56,10 +62,14 @@ def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                         device=xdt.device)
     if bb * h == 0:
         return y, s_out
-    rc = _lib.lib().mapsdi_mamba2_ssd(
+    lib = _lib.lib()
+    work = torch.empty(lib.mapsdi_mamba2_ssd_workspace(bb, h, t, code),
+                       dtype=torch.uint8, device=xdt.device)
+    rc = lib.mapsdi_mamba2_ssd(
         xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), bb, h, t, p, n, chunk, code,
+        s_out.data_ptr(), work.data_ptr() if work.numel() else None, bb, h,
+        t, p, n, chunk, code,
         xdt.device.index or 0,
         torch.cuda.current_stream(xdt.device).cuda_stream)
     _lib.check(rc, what)

@@ -1,8 +1,10 @@
 """Wrapper around the CUDA RWKV6 kernel (``csrc/rwkv6.cu``).
 
-It checks its inputs, allocates the outputs with ``torch.empty``,
-launches on the current stream without synchronising, raises if the
-launch reported a CUDA error, and adds one to its launch count.
+It checks its inputs, allocates the outputs and the kernel's workspace
+(the bf16 route's per-segment transitions) with ``torch.empty``, launches
+on the current stream without synchronising, raises if the launch
+reported a CUDA error, and adds one to its launch count (one call, though
+the bf16 route runs two CUDA kernels).
 """
 from __future__ import annotations
 
@@ -15,6 +17,9 @@ from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
 #: the kernel's compiled chunk and head size
 CHUNK = 32
 HEAD_SIZE = 64
+#: chunks per segment on the bf16 route (``kSeg`` in ``csrc/rwkv6.cu``):
+#: segments run in parallel, joined by their transitions
+SEGMENT_CHUNKS = 16
 
 
 def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -53,10 +58,14 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return y, s_out
-    rc = _lib.lib().mapsdi_rwkv6(
+    lib = _lib.lib()
+    work = torch.empty(lib.mapsdi_rwkv6_workspace(b, h, t, code),
+                       dtype=torch.uint8, device=r.device)
+    rc = lib.mapsdi_rwkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), b, h, t, n, chunk, code,
+        s_out.data_ptr(), work.data_ptr() if work.numel() else None, b, h, t,
+        n, chunk, code,
         r.device.index or 0, torch.cuda.current_stream(r.device).cuda_stream)
     _lib.check(rc, what)
     count_launch(what)

@@ -25,12 +25,16 @@ from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
 
 from .flash_attention.kernel import flash_attention_kernel
 from .flash_attention.ref import attention_ref
+from .mamba2.kernel import CHUNK as SSD_CHUNK
+from .mamba2.kernel import SEGMENT_CHUNKS as SSD_SEGMENT_CHUNKS
 from .mamba2.kernel import mamba2_ssd_kernel
 from .mamba2.ref import mamba2_ssd_ref
 from .radix_partition.kernel import radix_partition_kernel
 from .radix_partition.ref import PAD_ID, radix_partition_ref
 from .rowhash.kernel import hash_neighbor_flags_kernel, rowhash_kernel
 from .rowhash.ref import hash_neighbor_flags_ref, rowhash_ref
+from .rwkv6.kernel import CHUNK as RWKV6_CHUNK
+from .rwkv6.kernel import SEGMENT_CHUNKS as RWKV6_SEGMENT_CHUNKS
 from .rwkv6.kernel import rwkv6_kernel
 from .rwkv6.ref import rwkv6_chunked
 
@@ -180,10 +184,11 @@ TOLERANCE = {torch.bfloat16: (2.0 ** -7, 1e-5), torch.float32: (1e-4, 1e-5)}
 
 
 def rwkv6_inputs(device, b: int, h: int, t: int, *, dtype=torch.bfloat16,
-                 w=None, state: bool = False, seed: int = 0):
+                 w=None, state: bool = False, zero_run=None, seed: int = 0):
     """(r, k, v, w, u, state) shaped as the model hands them to the WKV6
     scan: w = exp(-exp(z)) for z in [-6, 2] (decays from 6e-4 to 0.9975)
-    unless ``w`` (a float) fixes every decay."""
+    unless ``w`` (a float) fixes every decay; ``zero_run = (start, length)``
+    then sets w = 0 on those positions."""
     rng = np.random.default_rng(seed)
     n = 64
 
@@ -195,6 +200,8 @@ def rwkv6_inputs(device, b: int, h: int, t: int, *, dtype=torch.bfloat16,
     v = mk(rng.normal(0, 1, (b, h, t, n)), dtype)
     wa = (np.exp(-np.exp(rng.uniform(-6, 2, (b, h, t, n)))) if w is None
           else np.full((b, h, t, n), w))
+    if zero_run is not None:
+        wa[:, :, zero_run[0]:zero_run[0] + zero_run[1]] = 0.0
     wt = mk(wa, dtype)
     u = mk(rng.normal(0, 0.3, (h, n)), torch.float32)
     s0 = mk(rng.normal(0, 1, (b, h, n, n)), torch.float32) if state else None
@@ -222,13 +229,23 @@ def ssd_inputs(device, b: int, h: int, t: int, *, dtype=torch.bfloat16,
     return xdt, mk(la_a, torch.float32), bm, cm, s0
 
 
+#: the serving shapes: a decode step (T = 1 from a state) and a 4-token
+#: prefill, for 4 prompts at the models' head counts
+SERVE_BATCH = 4
+RWKV6_HEADS, SSD_HEADS = 64, 80
+
+
 def recurrence_cases(device: torch.device,
                      rwkv6_shape: Tuple[int, int, int] = (2, 64, 2048),
                      ssd_shape: Tuple[int, int, int] = (2, 80, 2048),
                      seed: int = 0) -> List[Case]:
     """Both float kernels at the main path's (B, H, T) in bfloat16, and at
     the edge cases: T not a chunk multiple, T = one chunk, T = 1, float32
-    inputs, an initial state, and decays at 0 and near 1."""
+    inputs, an initial state, and decays at 0 and near 1; the bf16 route's
+    segments (T = two segments and one token, from a state; a block count
+    that leaves the card's last wave partial; a run of 35 zero decays
+    across a segment boundary; mamba2's decay to 0 from a state); and the
+    serving shapes."""
     out: List[Case] = []
 
     def add_rwkv6(label: str, b, h, t, **kw) -> None:
@@ -262,6 +279,25 @@ def recurrence_cases(device: torch.device,
     add_ssd("la = 0 (no decay)", 1, 2, 128, la=0.0, dtype=torch.float32)
     add_ssd("la = -80 (decay to 0)", 1, 2, 128, la=-80.0,
             dtype=torch.float32)
+    # the bf16 route's segments and the serving shapes (after the cases
+    # above, whose seeds stay as they were)
+    seg = RWKV6_SEGMENT_CHUNKS * RWKV6_CHUNK
+    add_rwkv6(f"T={2 * seg + 1} (two segments + 1) initial state", 1, 3,
+              2 * seg + 1, state=True)
+    add_rwkv6("B=3 H=47 T=300 (partial last wave)", 3, 47, 300)
+    add_rwkv6(f"w = 0 at {seg - 16}..{seg + 18} (35 across a segment) "
+              "T=600", 1, 2, 600, zero_run=(seg - 16, 35))
+    add_rwkv6(f"serve B={SERVE_BATCH} T=1 initial state", SERVE_BATCH,
+              RWKV6_HEADS, 1, state=True)
+    add_rwkv6(f"serve B={SERVE_BATCH} T=4", SERVE_BATCH, RWKV6_HEADS, 4)
+    seg = SSD_SEGMENT_CHUNKS * SSD_CHUNK
+    add_ssd(f"T={2 * seg + 1} (two segments + 1) initial state", 1, 3,
+            2 * seg + 1, state=True)
+    add_ssd("B=3 H=47 T=300 (partial last wave)", 3, 47, 300)
+    add_ssd("la = -80 initial state T=300", 1, 2, 300, la=-80.0, state=True)
+    add_ssd(f"serve B={SERVE_BATCH} T=1 initial state", SERVE_BATCH,
+            SSD_HEADS, 1, state=True)
+    add_ssd(f"serve B={SERVE_BATCH} T=4", SERVE_BATCH, SSD_HEADS, 4)
     return out
 
 
@@ -340,6 +376,14 @@ def float_mismatches(case: Case) -> Tuple[int, float]:
     every element."""
     got, want = _tuple(case.kernel_fn()), _tuple(case.plain_fn())
     torch.cuda.synchronize()
+    return out_of_tolerance(got, want)
+
+
+def out_of_tolerance(got: Sequence[torch.Tensor],
+                     want: Sequence[torch.Tensor]) -> Tuple[int, float]:
+    """(elements of ``got`` out of ``TOLERANCE`` against ``want``, largest
+    absolute difference); a shape or dtype disagreement counts every
+    element."""
     bad, err = abs(len(got) - len(want)), 0.0
     for g, w in zip(got, want):
         if g.shape != w.shape or g.dtype != w.dtype:

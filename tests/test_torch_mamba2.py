@@ -14,15 +14,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.mamba2.mamba2 import mamba2_ssd_pallas
 from repro.kernels.mamba2.ops import mamba2_ssd as j_dispatch
 from repro.kernels.mamba2.ref import ssd_chunked as j_chunked
 from repro.kernels.mamba2.ref import ssd_scan_ref as j_scan
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import launch_counts, reset_launch_counts, selfcheck
 from repro_torch.kernels.mamba2 import (mamba2_ssd, mamba2_ssd_kernel,
                                         mamba2_ssd_ref, ssd_chunked,
                                         ssd_scan_ref)
+from repro_torch.kernels.mamba2.kernel import CHUNK, SEGMENT_CHUNKS
 from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
@@ -158,6 +160,116 @@ def test_selfcheck_recurrence_cases_cover_both_kernels_and_run_plain():
         y, s = c.plain_fn()
         assert torch.isfinite(y.float()).all() and torch.isfinite(s).all(), \
             c.label
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's bf16 route, emulated on the CPU: the same segments and
+# transitions, the same operand rounding, held against the plain version
+# and the reference's Pallas kernel at selfcheck.TOLERANCE
+# ---------------------------------------------------------------------------
+
+#: the kernel's float32 log2(e)
+LOG2E = 1.4426950408889634
+
+
+def _split(x):
+    """x ~ hi + lo, both bf16 values: the kernel's split operand."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm2(a, b):
+    """float32 a times bf16 b on the tensor cores: two passes, a split."""
+    ah, al = _split(a)
+    return ah @ b + al @ b
+
+
+def _emulate_bf16_route(xdt, la, bm, cm, state=None):
+    """``csrc/mamba2_ssd.cu``'s bf16 route: log2-scaled decays; c b^T once
+    per (batch row, chunk) in one pass (bf16 x bf16); segments of
+    SEGMENT_CHUNKS chunks, every one but the last run from a zero state to
+    its transition (D, M); each segment run from the state the earlier
+    transitions carry it: y = exp(cum) (c S) with S split, plus scores
+    xdt with scores split; bw^T xdt with bw split."""
+    L, G = CHUNK, SEGMENT_CHUNKS
+    bb, h, t, p = xdt.shape
+    n = bm.shape[-1]
+    pad = (-t) % L
+    xf = F.pad(xdt.float(), (0, 0, 0, pad))
+    lf = F.pad(la.float(), (0, pad)) * LOG2E
+    bf, cf = (F.pad(m.float(), (0, 0, 0, pad)) for m in (bm, cm))
+    chunks = (t + pad) // L
+    n_seg = max(1, -(-chunks // G))
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool))
+
+    def chunk(ci):
+        sl = slice(ci * L, (ci + 1) * L)
+        cum = torch.cumsum(lf[:, :, sl], dim=-1)
+        cl = cum[..., -1]
+        bw = bf[:, None, sl] * torch.exp2(cl[..., None] - cum)[..., None]
+        return sl, cum, cl, bw
+
+    def update(s, sl, cl, bw):
+        return (torch.exp2(cl)[..., None, None] * s
+                + _mm2(bw.transpose(-1, -2), xf[:, :, sl]))
+
+    trans = []
+    for sg in range(n_seg - 1):
+        s, d = torch.zeros((bb, h, n, p)), torch.ones((bb, h))
+        for ci in range(sg * G, (sg + 1) * G):
+            sl, cum, cl, bw = chunk(ci)
+            s, d = update(s, sl, cl, bw), d * torch.exp2(cl)
+        trans.append((d, s))
+    ys = []
+    for sg in range(n_seg):
+        s = (torch.zeros((bb, h, n, p)) if state is None
+             else state.float())
+        for d, m in trans[:sg]:
+            s = d[..., None, None] * s + m
+        for ci in range(sg * G, min((sg + 1) * G, chunks)):
+            sl, cum, cl, bw = chunk(ci)
+            cb = cf[:, sl] @ bf[:, sl].transpose(-1, -2)        # [B,L,L]
+            diff = torch.where(mask, cum[..., :, None] - cum[..., None, :],
+                               0.0)
+            scores = torch.where(mask, cb[:, None] * torch.exp2(diff), 0.0)
+            sh, sl_ = _split(s)
+            cs = cf[:, None, sl] @ sh + cf[:, None, sl] @ sl_
+            ys.append(torch.exp2(cum)[..., None] * cs
+                      + _mm2(scores, xf[:, :, sl]))
+            s = update(s, sl, cl, bw)
+    y = torch.cat(ys, dim=2) if ys else xf
+    return y[:, :, :t].to(xdt.dtype), s
+
+
+@pytest.mark.parametrize("t,state,la", [
+    (1, True, None), (CHUNK, False, None), (600, False, None),
+    (300, True, None), (300, True, -80.0)])
+def test_bf16_route_emulation_matches_plain_version(t, state, la):
+    # T = 1, one chunk, three segments with a ragged tail, an initial
+    # state, and a decay to 0 from a state
+    x = selfcheck.ssd_inputs(torch.device("cpu"), 1, 2, t, state=state,
+                             la=la, seed=t)
+    got = _emulate_bf16_route(*x)
+    assert got[0].dtype == torch.bfloat16
+    bad, err = selfcheck.out_of_tolerance(got, mamba2_ssd_ref(*x))
+    assert bad == 0, err
+
+
+def test_bf16_route_emulation_matches_the_pallas_kernel():
+    # T = 9 chunks: three segments, the last of one chunk; zero state and
+    # a chunk multiple, as the Pallas kernel takes them
+    xdt, la, bm, cm, _ = selfcheck.ssd_inputs(torch.device("cpu"), 1, 2,
+                                              9 * CHUNK, seed=7)
+    got = _emulate_bf16_route(xdt, la, bm, cm)
+    jy, js = mamba2_ssd_pallas(_j(xdt.float().numpy(), jnp.bfloat16),
+                               _j(la.numpy()),
+                               _j(bm.float().numpy(), jnp.bfloat16),
+                               _j(cm.float().numpy(), jnp.bfloat16),
+                               chunk=CHUNK, interpret=True)
+    want = (torch.from_numpy(np.asarray(jy, np.float32)).to(torch.bfloat16),
+            torch.from_numpy(np.array(js)))
+    bad, err = selfcheck.out_of_tolerance(got, want)
+    assert bad == 0, err
 
 
 # ---------------------------------------------------------------------------

@@ -16,13 +16,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels.rwkv6.ref import rwkv6_chunked as j_chunked
 from repro.kernels.rwkv6.ref import rwkv6_scan_ref as j_scan
 from repro.kernels.rwkv6.rwkv6 import rwkv6_pallas
-from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels import launch_counts, reset_launch_counts, selfcheck
 from repro_torch.kernels.rwkv6 import (rwkv6, rwkv6_chunked, rwkv6_kernel,
                                        rwkv6_scan_ref)
+from repro_torch.kernels.rwkv6.kernel import CHUNK, SEGMENT_CHUNKS
 from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
@@ -158,6 +160,129 @@ def test_kernel_wrapper_refuses_grad_and_cpu_tensors():
         rwkv6_kernel(*args)
     with pytest.raises(ValueError, match="head size 64"):
         rwkv6_kernel(*map(_t, _inputs(1, 1, 32, 16, seed=1)[:5]))
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's bf16 route, emulated on the CPU: the same segments and
+# transitions, the same operand rounding, held against the plain version
+# and the reference's Pallas kernel at selfcheck.TOLERANCE
+# ---------------------------------------------------------------------------
+
+def _split(x):
+    """x ~ hi + lo, both bf16 values: the kernel's split operand."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _mm2(a, b):
+    """float32 a times bf16 b on the tensor cores: two passes, a split."""
+    ah, al = _split(a)
+    return ah @ b + al @ b
+
+
+def _mm3(a, b):
+    """float32 a times float32 b: three passes, hi.hi + hi.lo + lo.hi."""
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+#: the kernel's float32 log2(e)
+LOG2E = 1.4426950408889634
+
+
+def _exp(x):
+    """exp as the kernel takes it: 2^(x log2(e)) on the special-function
+    unit."""
+    return torch.exp2(x * LOG2E)
+
+
+def _emulate_bf16_route(r, k, v, w, u, state=None):
+    """``csrc/rwkv6.cu``'s bf16 route: the decays' exponents in the plain
+    version's bits (natural log, a sequential sum per column, cum - lw);
+    segments of SEGMENT_CHUNKS chunks; every segment but the last run from
+    a zero state to its transition (D, M); each segment run from the state
+    the earlier transitions carry it, scores (bonus on the diagonal) times
+    v and q S on split operands."""
+    L, G = CHUNK, SEGMENT_CHUNKS
+    b, h, t, n = r.shape
+    pad = (-t) % L
+    rf, kf, vf = (F.pad(x.float(), (0, 0, 0, pad)) for x in (r, k, v))
+    lw = torch.log(torch.clamp_min(F.pad(w.float(), (0, 0, 0, pad),
+                                         value=1.0), 1e-30))
+    chunks = (t + pad) // L
+    n_seg = max(1, -(-chunks // G))
+    lower = torch.tril(torch.ones((L, L), dtype=torch.bool), diagonal=-1)
+
+    def chunk(ci):
+        sl = slice(ci * L, (ci + 1) * L)
+        cum = torch.cumsum(lw[:, :, sl], dim=2)
+        cl = cum[:, :, -1]
+        kw = kf[:, :, sl] * _exp(cl[:, :, None] - cum)
+        return sl, cum, cl, kw
+
+    def update(s, sl, cl, kw):
+        return (_exp(cl)[..., None] * s
+                + _mm2(kw.transpose(-1, -2), vf[:, :, sl]))
+
+    trans = []
+    for sg in range(n_seg - 1):
+        s, d = torch.zeros((b, h, n, n)), torch.ones((b, h, n))
+        for ci in range(sg * G, (sg + 1) * G):
+            sl, cum, cl, kw = chunk(ci)
+            s, d = update(s, sl, cl, kw), d * _exp(cl)
+        trans.append((d, s))
+    ys = []
+    for sg in range(n_seg):
+        s = torch.zeros((b, h, n, n)) if state is None else state.float()
+        for d, m in trans[:sg]:
+            s = d[..., None] * s + m
+        for ci in range(sg * G, min((sg + 1) * G, chunks)):
+            sl, cum, cl, kw = chunk(ci)
+            rc, kc = rf[:, :, sl], kf[:, :, sl]
+            cex = cum - lw[:, :, sl]
+            diff = cex[:, :, :, None, :] - cum[:, :, None, :, :]
+            e = _exp(torch.where(lower[:, :, None], diff, -torch.inf))
+            scores = (e * rc[:, :, :, None, :] * kc[:, :, None, :, :]).sum(-1)
+            bonus = (rc * u.float()[None, :, None, :] * kc).sum(-1)
+            scores = scores + torch.diag_embed(bonus)
+            q = rc * _exp(cex)
+            ys.append(_mm3(q, s) + _mm2(scores, vf[:, :, sl]))
+            s = update(s, sl, cl, kw)
+    y = torch.cat(ys, dim=2) if ys else rf
+    return y[:, :, :t].to(r.dtype), s
+
+
+SEG = CHUNK * SEGMENT_CHUNKS
+
+
+@pytest.mark.parametrize("t,state,zero_run", [
+    (1, True, None), (CHUNK, False, None), (2 * SEG + 88, False, None),
+    (SEG + 40, True, None), (SEG + 88, False, (SEG - 16, 35))])
+def test_bf16_route_emulation_matches_plain_version(t, state, zero_run):
+    # T = 1, one chunk, three segments with a ragged tail, an initial
+    # state, and 35 zero decays across a segment boundary
+    x = selfcheck.rwkv6_inputs(torch.device("cpu"), 1, 2, t, state=state,
+                               zero_run=zero_run, seed=t)
+    got = _emulate_bf16_route(*x)
+    assert got[0].dtype == torch.bfloat16
+    bad, err = selfcheck.out_of_tolerance(got, rwkv6_chunked(*x))
+    assert bad == 0, err
+
+
+def test_bf16_route_emulation_matches_the_pallas_kernel():
+    # three segments, the last of one chunk; zero state and a chunk
+    # multiple, as the Pallas kernel takes them
+    r, k, v, w, u, _ = selfcheck.rwkv6_inputs(
+        torch.device("cpu"), 1, 2, (2 * SEGMENT_CHUNKS + 1) * CHUNK, seed=5)
+    got = _emulate_bf16_route(r, k, v, w, u)
+    jy, js = rwkv6_pallas(*(jnp.asarray(x.float().numpy(), jnp.bfloat16)
+                            for x in (r, k, v, w)), _j(u.numpy()),
+                          chunk=CHUNK, interpret=True)
+    want = (torch.from_numpy(np.asarray(jy, np.float32)).to(torch.bfloat16),
+            torch.from_numpy(np.array(js)))
+    bad, err = selfcheck.out_of_tolerance(got, want)
+    assert bad == 0, err
 
 
 # ---------------------------------------------------------------------------
