@@ -64,12 +64,12 @@ no result):
    bound of the units their bf16 route uses (products on the tensor
    cores, with the split passes the tolerance needs), beside the float32
    bound of earlier runs, each recurrence's time at the decode shape
-   (``RECURRENCE_DECODE``) too, and the device time of each CUDA kernel
-   a recurrence call launches (``torch.profiler``); for flash attention,
-   beside
+   (``RECURRENCE_DECODE``) too; for flash attention, beside
    ``F.scaled_dot_product_attention`` at the same shape (the library
    yardstick; the port never calls it).
-7. A ``{"kernels": [...]}`` JSON line for all six kernels, then as the
+7. A ``{"kernels": [...]}`` JSON line for all six kernels (``bound_by``
+   says bytes or operations; ``bound_unit`` names the unit that sets the
+   bound: bytes, bf16 products, fp32 elementwise or exp), then as the
    last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -394,24 +394,6 @@ def device_ms(torch, calls, n_calls: int):
         host_bound |= host_ms > slept.elapsed_time(start)
         trials.append(start.elapsed_time(stop) / n_calls)
     return statistics.median(trials), host_bound
-
-
-def cuda_kernel_ms(torch, calls, rounds: int = 5):
-    """Device milliseconds per call of each CUDA kernel the calls launch,
-    from ``torch.profiler`` (None if it saw no device time)."""
-    from torch.profiler import ProfilerActivity, profile
-    for fn in calls:
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(rounds):
-            for fn in calls:
-                fn()
-        torch.cuda.synchronize()
-    n = rounds * len(calls)
-    out = {e.key.split("::")[-1].split("(")[0]: e.device_time_total / n / 1e3
-           for e in prof.key_averages() if e.device_time_total > 0}
-    return out or None
 
 
 def max_abs_err(torch, case) -> float:
@@ -950,15 +932,15 @@ def lm_kernel_phase(torch, dev):
             torch, dev, kernel, RECURRENCE_DECODE, state=True)
         decode_ms, d_host = device_ms(torch, dkern, TIMING_CALLS["kernel"])
         decode_bound, dparts, _ = recurrence_bound(dwork)
-        split = cuda_kernel_ms(torch, kern)
         times[kernel] = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": ("bytes" if parts["bytes"] >= bound
                          else "operations"),
+            "bound_unit": max(parts, key=parts.get),
             "library_ms": None, "host_bound": k_host, "shape": shape,
             "fp32_bound_ms": fp32_bound, "decode_ms": decode_ms,
             "decode_bound_ms": decode_bound, "decode_shape": dshape,
-            "decode_host_bound": d_host, "cuda_kernels_ms": split}
+            "decode_host_bound": d_host}
         detail = ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
         log(f"time {kernel:15s} {shape} kernel {ms:.4f} ms  plain "
             f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({detail}: "
@@ -970,9 +952,6 @@ def lm_kernel_phase(torch, dev):
         log(f"time {kernel:15s} decode {dshape} kernel {decode_ms:.4f} ms  "
             f"bound {decode_bound:.4f} ms (bytes {dparts['bytes']:.4f})  "
             f"host-bound {d_host}")
-        log(f"time {kernel:15s} per CUDA kernel of a call (torch.profiler): "
-            + (", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
-               if split else "not measured (no device time traced)"))
     for shape in selfcheck.ATTENTION_PATH_SHAPES:
         kern, plain, lib, nbytes, flops, exps, label = attention_work(
             torch, dev, shape)
@@ -987,6 +966,7 @@ def lm_kernel_phase(torch, dev):
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": ("bytes" if parts["bytes"] >= bound
                          else "operations"),
+            "bound_unit": max(parts, key=parts.get),
             "library_ms": lib_ms, "host_bound": k_host, "shape": label}
         if shape[0] == FLASH_REPORT_SHAPE:
             times["flash_attention"] = entry
@@ -1052,11 +1032,11 @@ def main() -> int:
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_unit": t.get("bound_unit", t["bound_by"]),
             "library_ms": t.get("library_ms"), "host_bound": t["host_bound"],
             "shape": t["shape"],
             **{k: t[k] for k in ("fp32_bound_ms", "decode_ms",
-                                 "decode_bound_ms", "decode_shape",
-                                 "cuda_kernels_ms")
+                                 "decode_bound_ms", "decode_shape")
                if k in t}})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)

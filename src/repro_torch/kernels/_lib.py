@@ -31,8 +31,7 @@ _vp, _i32, _i64, _u64, _f32 = (ctypes.c_void_p, ctypes.c_int,
                                ctypes.c_longlong, ctypes.c_ulonglong,
                                ctypes.c_float)
 #: C entry points and their argument types (every pointer and the stream
-#: are ``c_void_p``); each function returns ``cudaGetLastError()`` as an
-#: int, except those in ``RESTYPES``
+#: are ``c_void_p``; each function returns ``cudaGetLastError()``)
 SIGNATURES = {
     # x, out, n, k, device, stream
     "mapsdi_rowhash": [_vp, _vp, _i64, _i32, _i32, _vp],
@@ -43,25 +42,17 @@ SIGNATURES = {
     # key_hi, block_scratch, raw_counts, out, device, stream
     "mapsdi_radix_partition": [_vp, _vp, _i32, _i32, _i32, _i32, _i32,
                                _i32, _u64, _u64, _vp, _vp, _vp, _i32, _vp],
-    # r, k, v, w, u, s0, y, s_out, work, b, h, t, n, chunk, dtype, device,
-    # stream
-    "mapsdi_rwkv6": [_vp] * 9 + [_i32] * 7 + [_vp],
-    # b, h, t, dtype -> workspace bytes
-    "mapsdi_rwkv6_workspace": [_i32] * 4,
-    # xdt, la, b, c, s0, y, s_out, work, b, h, t, p, n, chunk, dtype,
-    # device, stream
-    "mapsdi_mamba2_ssd": [_vp] * 8 + [_i32] * 8 + [_vp],
-    # b, h, t, dtype -> workspace bytes
-    "mapsdi_mamba2_ssd_workspace": [_i32] * 4,
+    # r, k, v, w, u, s0, y, s_out, work, work_bytes, b, h, t, n, chunk,
+    # seg_chunks, dtype, device, stream
+    "mapsdi_rwkv6": [_vp] * 9 + [_i64] + [_i32] * 8 + [_vp],
+    # xdt, la, b, c, s0, y, s_out, work, work_bytes, b, h, t, p, n, chunk,
+    # seg_chunks, dtype, device, stream
+    "mapsdi_mamba2_ssd": [_vp] * 8 + [_i64] + [_i32] * 9 + [_vp],
     # q, k, v, o, b, h, kh, sq, sk, d, kv_len, causal, window, scale, dtype,
     # device, stream
     "mapsdi_flash_attention": [_vp] * 4 + [_i32] * 9 + [_f32, _i32, _i32,
                                                         _vp],
 }
-
-#: entry points that return something else than a CUDA error code
-RESTYPES = {"mapsdi_rwkv6_workspace": _i64,
-            "mapsdi_mamba2_ssd_workspace": _i64}
 
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last build took (0.0 when an existing library was loaded)
@@ -147,7 +138,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = RESTYPES.get(name, ctypes.c_int)
+            fn.restype = ctypes.c_int
         _LIB = handle
     return _LIB
 

@@ -25,16 +25,17 @@
 //  1. ssd_cb: c b^T per (batch row, chunk) on the tensor cores, once for
 //     all the heads of the row, float32 into the workspace (only the 16x8
 //     tiles on or below the diagonal).
-//  2. ssd_transition: per (batch*head, segment of kSeg chunks) except the
-//     last segment, the segment's transition S_out = D S_in + M, run from
-//     a zero state: D = prod exp(cum[L-1]) over its chunks, M the state
-//     the segment alone leaves.
+//  2. ssd_transition: per (batch*head, segment of seg_chunks chunks)
+//     except the last segment, the segment's transition
+//     S_out = D S_in + M, run from a zero state: D = prod exp(cum[L-1])
+//     over its chunks, M the state the segment alone leaves.
 //  3. ssd_scan: per (batch*head, segment), the state entering the segment
 //     (the initial state carried through the earlier transitions,
 //     elementwise), then the segment's chunks in order; the last segment
 //     writes the final state.
-// Segments give B*H*ceil(chunks / kSeg) blocks (1280 at the path shape
-// for 132 SMs, against the 160 of one block per (batch, head)); the
+// seg_chunks is the wrapper's SEGMENT_CHUNKS (mamba2/kernel.py). Segments
+// give B*H*ceil(chunks / seg_chunks) blocks (1280 at the path shape for
+// 132 SMs, against the 160 of one block per (batch, head)); the
 // float32 transitions of all but the last segment (18 MB there) and c b^T
 // (1 MB) stay in the 50 MB L2.
 // 256 threads (8 warps) a block, two blocks an SM; warp w owns rows
@@ -59,7 +60,6 @@ constexpr int LD = N + 1;      // padded row stride of the float32 tiles
 constexpr int kF32Threads = 256;
 constexpr int kThreads = 256;  // bf16 route: 8 warps
 constexpr int kCbThreads = 128;   // c b^T: 4 warps, 16 rows each
-constexpr int kSeg = 4;        // chunks per segment
 
 // ---------------------------------------------------------------------------
 // float32 route: one block per (batch, head), CUDA-core products
@@ -333,7 +333,7 @@ ssd_transition_kernel(const bf16* __restrict__ xdt,
                       const float* __restrict__ la,
                       const bf16* __restrict__ bm, float* __restrict__ m_out,
                       float* __restrict__ d_out, int n_heads, int t_len,
-                      int n_seg) {
+                      int n_seg, int seg_chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TransitionSmem& sm = *reinterpret_cast<TransitionSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -341,7 +341,7 @@ ssd_transition_kernel(const bf16* __restrict__ xdt,
   const bf16* xb = xdt + (size_t)bh * t_len * P;
   const float* lb = la + (size_t)bh * t_len;
   const bf16* bb = bm + (size_t)(bh / n_heads) * t_len * N;
-  const int ch0 = seg * kSeg;
+  const int ch0 = seg * seg_chunks;
   const int row0 = 16 * (w & 3), col0 = 32 * (w >> 2);
 
   float S[4][4];
@@ -354,12 +354,12 @@ ssd_transition_kernel(const bf16* __restrict__ xdt,
   load_bx(sm.st[0], bb + (size_t)ch0 * L * N, xb + (size_t)ch0 * L * P,
           lb + ch0 * L, t_len - ch0 * L, tid);
   cp_async_commit();
-  for (int i = 0; i < kSeg; ++i) {
+  for (int i = 0; i < seg_chunks; ++i) {
     const int ch = ch0 + i, c0 = ch * L;
     const StageBX& st = sm.st[i & 1];
     cp_async_wait_all();
     __syncthreads();
-    if (i + 1 < kSeg)
+    if (i + 1 < seg_chunks)
       load_bx(sm.st[(i + 1) & 1], bb + (size_t)(c0 + L) * N,
               xb + (size_t)(c0 + L) * P, lb + c0 + L, t_len - c0 - L, tid);
     cp_async_commit();
@@ -388,7 +388,7 @@ ssd_scan_kernel(const bf16* __restrict__ xdt, const float* __restrict__ la,
                 const float* __restrict__ s0, const float* __restrict__ cbw,
                 const float* __restrict__ m_in, const float* __restrict__ d_in,
                 bf16* __restrict__ y, float* __restrict__ s_out, int n_heads,
-                int t_len, int n_chunks, int n_seg) {
+                int t_len, int n_chunks, int n_seg, int seg_chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ScanSmem& sm = *reinterpret_cast<ScanSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
@@ -401,8 +401,8 @@ ssd_scan_kernel(const bf16* __restrict__ xdt, const float* __restrict__ la,
   const bf16* bb = bm + (size_t)row * t_len * N;
   const bf16* cc = cm + (size_t)row * t_len * N;
   bf16* yb = y + (size_t)bh * t_len * P;
-  const int ch0 = seg * kSeg;
-  const int ch1 = min(ch0 + kSeg, n_chunks);
+  const int ch0 = seg * seg_chunks;
+  const int ch1 = min(ch0 + seg_chunks, n_chunks);
 
   if (ch0 < ch1) {
     const int c0 = ch0 * L;
@@ -542,23 +542,25 @@ ssd_scan_kernel(const bf16* __restrict__ xdt, const float* __restrict__ la,
     state_store(S, s_out + (size_t)bh * N * P, row0, col0, lane);
 }
 
-int n_segments(int t) {
-  return t <= 0 ? 1 : ((t + L - 1) / L + kSeg - 1) / kSeg;
+int n_segments(int t, int seg_chunks) {
+  return t <= 0 ? 1 : ((t + L - 1) / L + seg_chunks - 1) / seg_chunks;
 }
 
 // workspace: c b^T [B][chunks][L][L], then the transitions M
-// [B*H][segments-1][N][P] and D [B*H][segments-1], float32
-size_t workspace_floats(int bsz, int h, int t) {
+// [B*H][segments-1][N][P] and D [B*H][segments-1], float32 (the wrapper
+// allocates as many)
+size_t workspace_floats(int bsz, int h, int t, int seg_chunks) {
   const size_t chunks = t <= 0 ? 0 : (size_t)((t + L - 1) / L);
-  const size_t prev = (size_t)n_segments(t) - 1;
+  const size_t prev = (size_t)n_segments(t, seg_chunks) - 1;
   return (size_t)bsz * chunks * L * L + (size_t)bsz * h * prev * (N * P + 1);
 }
 
 int launch_bf16(const void* xdt, const void* la, const void* b,
                 const void* c, const void* s0, void* y, void* s_out,
-                void* work, int bsz, int h, int t, cudaStream_t stream) {
+                void* work, int bsz, int h, int t, int seg_chunks,
+                cudaStream_t stream) {
   const int chunks = t <= 0 ? 0 : (t + L - 1) / L;
-  const int n_seg = n_segments(t);
+  const int n_seg = n_segments(t, seg_chunks);
   float* cbw = static_cast<float*>(work);
   float* m = cbw + (size_t)bsz * chunks * L * L;
   float* d = m + (size_t)bsz * h * (n_seg - 1) * N * P;
@@ -578,7 +580,8 @@ int launch_bf16(const void* xdt, const void* la, const void* b,
         smem);
     if (e != cudaSuccess) return (int)e;
     ssd_transition_kernel<<<dim3(bsz * h, n_seg - 1), kThreads, smem,
-                            stream>>>(xb, lf, bb, m, d, h, t, n_seg);
+                            stream>>>(xb, lf, bb, m, d, h, t, n_seg,
+                                      seg_chunks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -588,7 +591,7 @@ int launch_bf16(const void* xdt, const void* la, const void* b,
   if (e != cudaSuccess) return (int)e;
   ssd_scan_kernel<<<dim3(bsz * h, n_seg), kThreads, smem, stream>>>(
       xb, lf, bb, cc, (const float*)s0, cbw, m, d, (bf16*)y, (float*)s_out,
-      h, t, chunks, n_seg);
+      h, t, chunks, n_seg, seg_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -608,31 +611,29 @@ int launch_f32(const void* xdt, const void* la, const void* b, const void* c,
 
 }  // namespace
 
-// Bytes of device workspace mapsdi_mamba2_ssd needs for these shapes
-// (bf16 route; the float32 route needs none).
-extern "C" long long mapsdi_mamba2_ssd_workspace(int bsz, int h, int t,
-                                                 int dtype) {
-  if (dtype != recurrence::kBFloat16 || bsz * h <= 0 || t < 0) return 0;
-  return (long long)(workspace_floats(bsz, h, t) * sizeof(float));
-}
-
 // xdt [B, H, T, P] and b/c [B, T, N] contiguous, all of one type; la
-// [B, H, T] f32; s0 [B, H, N, P] f32 or null (zeros); work: the bytes
-// mapsdi_mamba2_ssd_workspace asks for; writes y [B, H, T, P] in that type
-// and the final state s_out [B, H, N, P] f32.
+// [B, H, T] f32; s0 [B, H, N, P] f32 or null (zeros); seg_chunks: chunks
+// per segment of the bf16 route; work: work_bytes of device workspace, at
+// least workspace_floats() floats on the bf16 route; writes y [B, H, T, P]
+// in that type and the final state s_out [B, H, N, P] f32.
 extern "C" int mapsdi_mamba2_ssd(const void* xdt, const void* la,
                                  const void* b, const void* c, const void* s0,
-                                 void* y, void* s_out, void* work, int bsz,
-                                 int h, int t, int p, int n, int chunk,
+                                 void* y, void* s_out, void* work,
+                                 long long work_bytes, int bsz, int h, int t,
+                                 int p, int n, int chunk, int seg_chunks,
                                  int dtype, int device, void* stream) {
   cudaSetDevice(device);
-  if (p != P || n != N || chunk != L || bsz * h <= 0 || t < 0)
+  if (p != P || n != N || chunk != L || bsz * h <= 0 || t < 0 ||
+      seg_chunks <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == recurrence::kBFloat16) {
-    if (!work && workspace_floats(bsz, h, t))
+    const size_t need =
+        workspace_floats(bsz, h, t, seg_chunks) * sizeof(float);
+    if (need && (!work || (size_t)work_bytes < need))
       return (int)cudaErrorInvalidValue;
-    return launch_bf16(xdt, la, b, c, s0, y, s_out, work, bsz, h, t, st);
+    return launch_bf16(xdt, la, b, c, s0, y, s_out, work, bsz, h, t,
+                       seg_chunks, st);
   }
   if (dtype == recurrence::kFloat32)
     return launch_f32(xdt, la, b, c, s0, y, s_out, bsz, h, t, st);

@@ -24,15 +24,16 @@
 // below, the bytes to 0.051 ms.
 //
 // Design, bf16 (the models' route), two launches:
-//  1. rwkv6_transition: per (batch*head, segment of kSeg chunks) except
-//     the last segment, the segment's transition S_out = diag(D) S_in + M
-//     run from a zero state: D = prod exp(cum[L-1]) per state row, M the
-//     state the segment alone leaves.
+//  1. rwkv6_transition: per (batch*head, segment of seg_chunks chunks)
+//     except the last segment, the segment's transition
+//     S_out = diag(D) S_in + M run from a zero state: D = prod
+//     exp(cum[L-1]) per state row, M the state the segment alone leaves.
 //  2. rwkv6_scan: per (batch*head, segment), the state entering the
 //     segment (the initial state carried through the earlier transitions,
 //     elementwise), then the segment's chunks in order; the last segment
 //     writes the final state.
-// Segments of 512 tokens give B*H*ceil(chunks / kSeg) blocks (512 at the
+// seg_chunks is the wrapper's SEGMENT_CHUNKS (rwkv6/kernel.py). Segments
+// of 512 tokens give B*H*ceil(chunks / seg_chunks) blocks (512 at the
 // path shape: two waves of two blocks an SM, against the 128 blocks of
 // one per (batch, head)); the float32 transitions of all but the last
 // segment take 6.4 MB there, in the 50 MB L2. Each scan block carries the
@@ -67,7 +68,6 @@ constexpr int LD = N + 1;      // padded row stride of the float32 tiles
 constexpr int kF32Threads = 256;
 constexpr int kWarps = 8;      // bf16 route
 constexpr int kThreads = 32 * kWarps;
-constexpr int kSeg = 16;       // chunks per segment
 constexpr int LDC = 40;        // bf16 row stride of the [L, L] scores
 // float32 row stride of the bf16 route's [L, N] tiles: rows 4 apart fall
 // 8 banks apart, so the scores' loads of neighbouring tiles do not collide
@@ -433,13 +433,14 @@ __global__ void __launch_bounds__(kThreads)
 rwkv6_transition_kernel(const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ w, float* __restrict__ m_out,
-                        float* __restrict__ d_out, int t_len, int n_seg) {
+                        float* __restrict__ d_out, int t_len, int n_seg,
+                        int seg_chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TransitionSmem& sm = *reinterpret_cast<TransitionSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
   const int bh = blockIdx.x, seg = blockIdx.y;
   const size_t base = (size_t)bh * t_len * N;
-  const int ch0 = seg * kSeg;
+  const int ch0 = seg * seg_chunks;
   const int row0 = 16 * (wp & 3), col0 = 32 * (wp >> 2);
 
   float S[4][4];
@@ -455,12 +456,12 @@ rwkv6_transition_kernel(const bf16* __restrict__ k,
     load_kvw(sm.st[0], k + o, v + o, w + o, t_len - ch0 * L, tid);
   }
   cp_async_commit();
-  for (int i = 0; i < kSeg; ++i) {
+  for (int i = 0; i < seg_chunks; ++i) {
     const int c0 = (ch0 + i) * L;
     const StageKVW& st = sm.st[i & 1];
     cp_async_wait_all();
     __syncthreads();
-    if (i + 1 < kSeg) {
+    if (i + 1 < seg_chunks) {
       const size_t o = base + (size_t)(c0 + L) * N;
       load_kvw(sm.st[(i + 1) & 1], k + o, v + o, w + o, t_len - c0 - L, tid);
     }
@@ -497,7 +498,7 @@ rwkv6_scan_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
                   const float* __restrict__ m_in,
                   const float* __restrict__ d_in, bf16* __restrict__ y,
                   float* __restrict__ s_out, int n_heads, int t_len,
-                  int n_chunks, int n_seg) {
+                  int n_chunks, int n_seg, int seg_chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   ScanSmem& sm = *reinterpret_cast<ScanSmem*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
@@ -507,8 +508,8 @@ rwkv6_scan_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   const int bh = blockIdx.x, seg = blockIdx.y;
   const bool last_seg = seg == n_seg - 1;
   const size_t base = (size_t)bh * t_len * N;
-  const int ch0 = seg * kSeg;
-  const int ch1 = min(ch0 + kSeg, n_chunks);
+  const int ch0 = seg * seg_chunks;
+  const int ch1 = min(ch0 + seg_chunks, n_chunks);
 
   if (ch0 < ch1) {
     const size_t o = base + (size_t)ch0 * L * N;
@@ -615,21 +616,22 @@ rwkv6_scan_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
   if (last_seg) state_store(S, s_out + (size_t)bh * N * N, row0, col0, lane);
 }
 
-int n_segments(int t) {
-  return t <= 0 ? 1 : ((t + L - 1) / L + kSeg - 1) / kSeg;
+int n_segments(int t, int seg_chunks) {
+  return t <= 0 ? 1 : ((t + L - 1) / L + seg_chunks - 1) / seg_chunks;
 }
 
 // workspace: the transitions M [B*H][segments-1][N][N] and D
-// [B*H][segments-1][N], float32
-size_t workspace_floats(int b, int h, int t) {
-  return (size_t)b * h * (n_segments(t) - 1) * (N * N + N);
+// [B*H][segments-1][N], float32 (the wrapper allocates as many)
+size_t workspace_floats(int b, int h, int t, int seg_chunks) {
+  return (size_t)b * h * (n_segments(t, seg_chunks) - 1) * (N * N + N);
 }
 
 int launch_bf16(const void* r, const void* k, const void* v, const void* w,
                 const void* u, const void* s0, void* y, void* s_out,
-                void* work, int b, int h, int t, cudaStream_t stream) {
+                void* work, int b, int h, int t, int seg_chunks,
+                cudaStream_t stream) {
   const int chunks = t <= 0 ? 0 : (t + L - 1) / L;
-  const int n_seg = n_segments(t);
+  const int n_seg = n_segments(t, seg_chunks);
   float* m = static_cast<float*>(work);
   float* d = m + (size_t)b * h * (n_seg - 1) * N * N;
   const bf16 *rb = (const bf16*)r, *kb = (const bf16*)k,
@@ -641,7 +643,8 @@ int launch_bf16(const void* r, const void* k, const void* v, const void* w,
         smem);
     if (e != cudaSuccess) return (int)e;
     rwkv6_transition_kernel<<<dim3(b * h, n_seg - 1), kThreads, smem,
-                              stream>>>(kb, vb, wb, m, d, t, n_seg);
+                              stream>>>(kb, vb, wb, m, d, t, n_seg,
+                                        seg_chunks);
     e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
@@ -651,7 +654,7 @@ int launch_bf16(const void* r, const void* k, const void* v, const void* w,
   if (e != cudaSuccess) return (int)e;
   rwkv6_scan_kernel<<<dim3(b * h, n_seg), kThreads, smem, stream>>>(
       rb, kb, vb, wb, (const float*)u, (const float*)s0, m, d, (bf16*)y,
-      (float*)s_out, h, t, chunks, n_seg);
+      (float*)s_out, h, t, chunks, n_seg, seg_chunks);
   return (int)cudaGetLastError();
 }
 
@@ -671,29 +674,28 @@ int launch_f32(const void* r, const void* k, const void* v, const void* w,
 
 }  // namespace
 
-// Bytes of device workspace mapsdi_rwkv6 needs for these shapes (bf16
-// route; the float32 route needs none).
-extern "C" long long mapsdi_rwkv6_workspace(int b, int h, int t, int dtype) {
-  if (dtype != recurrence::kBFloat16 || b * h <= 0 || t < 0) return 0;
-  return (long long)(workspace_floats(b, h, t) * sizeof(float));
-}
-
 // r/k/v/w [B, H, T, N] contiguous, all of one type; u [H, N] f32; s0
-// [B, H, N, N] f32 or null (zeros); work: the bytes mapsdi_rwkv6_workspace
-// asks for; writes y [B, H, T, N] in that type and the final state s_out
-// [B, H, N, N] f32.
+// [B, H, N, N] f32 or null (zeros); seg_chunks: chunks per segment of the
+// bf16 route; work: work_bytes of device workspace, at least
+// workspace_floats() floats on the bf16 route; writes y [B, H, T, N] in
+// that type and the final state s_out [B, H, N, N] f32.
 extern "C" int mapsdi_rwkv6(const void* r, const void* k, const void* v,
                             const void* w, const void* u, const void* s0,
-                            void* y, void* s_out, void* work, int b, int h,
-                            int t, int n, int chunk, int dtype, int device,
+                            void* y, void* s_out, void* work,
+                            long long work_bytes, int b, int h, int t, int n,
+                            int chunk, int seg_chunks, int dtype, int device,
                             void* stream) {
   cudaSetDevice(device);
-  if (n != N || chunk != L || b * h <= 0 || t < 0)
+  if (n != N || chunk != L || b * h <= 0 || t < 0 || seg_chunks <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == recurrence::kBFloat16) {
-    if (!work && workspace_floats(b, h, t)) return (int)cudaErrorInvalidValue;
-    return launch_bf16(r, k, v, w, u, s0, y, s_out, work, b, h, t, st);
+    const size_t need =
+        workspace_floats(b, h, t, seg_chunks) * sizeof(float);
+    if (need && (!work || (size_t)work_bytes < need))
+      return (int)cudaErrorInvalidValue;
+    return launch_bf16(r, k, v, w, u, s0, y, s_out, work, b, h, t,
+                       seg_chunks, st);
   }
   if (dtype == recurrence::kFloat32)
     return launch_f32(r, k, v, w, u, s0, y, s_out, b, h, t, st);

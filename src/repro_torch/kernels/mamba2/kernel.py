@@ -18,10 +18,19 @@ from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
 CHUNK = 64
 HEAD_DIM = 64
 STATE = 64
-#: chunks per segment on the bf16 route (``kSeg`` in
-#: ``csrc/mamba2_ssd.cu``): segments run in parallel, joined by their
-#: transitions
+#: chunks per segment on the bf16 route, passed to the kernel: segments
+#: run in parallel, joined by their transitions
 SEGMENT_CHUNKS = 4
+
+
+def workspace_bytes(b: int, h: int, t: int) -> int:
+    """Bytes of the bf16 route's workspace, float32: c b^T [L, L] per
+    (batch row, chunk), then the transition (M [N, P] and D) of every
+    segment but the last, per (batch, head)."""
+    chunks = -(-t // CHUNK)
+    segments = max(1, -(-chunks // SEGMENT_CHUNKS))
+    return 4 * (b * chunks * CHUNK * CHUNK
+                + b * h * (segments - 1) * (STATE * HEAD_DIM + 1))
 
 
 def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
@@ -62,14 +71,14 @@ def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                         device=xdt.device)
     if bb * h == 0:
         return y, s_out
-    lib = _lib.lib()
-    work = torch.empty(lib.mapsdi_mamba2_ssd_workspace(bb, h, t, code),
+    work = torch.empty(workspace_bytes(bb, h, t)
+                       if xdt.dtype == torch.bfloat16 else 0,
                        dtype=torch.uint8, device=xdt.device)
-    rc = lib.mapsdi_mamba2_ssd(
+    rc = _lib.lib().mapsdi_mamba2_ssd(
         xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), work.data_ptr() if work.numel() else None, bb, h,
-        t, p, n, chunk, code,
+        s_out.data_ptr(), work.data_ptr() if work.numel() else None,
+        work.numel(), bb, h, t, p, n, chunk, SEGMENT_CHUNKS, code,
         xdt.device.index or 0,
         torch.cuda.current_stream(xdt.device).cuda_stream)
     _lib.check(rc, what)

@@ -17,9 +17,17 @@ from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
 #: the kernel's compiled chunk and head size
 CHUNK = 32
 HEAD_SIZE = 64
-#: chunks per segment on the bf16 route (``kSeg`` in ``csrc/rwkv6.cu``):
-#: segments run in parallel, joined by their transitions
+#: chunks per segment on the bf16 route, passed to the kernel: segments
+#: run in parallel, joined by their transitions
 SEGMENT_CHUNKS = 16
+
+
+def workspace_bytes(b: int, h: int, t: int) -> int:
+    """Bytes of the bf16 route's workspace: the float32 transition (M
+    [N, N] and D [N]) of every segment but the last, per (batch, head)."""
+    chunks = -(-t // CHUNK)
+    segments = max(1, -(-chunks // SEGMENT_CHUNKS))
+    return b * h * (segments - 1) * (HEAD_SIZE * HEAD_SIZE + HEAD_SIZE) * 4
 
 
 def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -58,14 +66,14 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return y, s_out
-    lib = _lib.lib()
-    work = torch.empty(lib.mapsdi_rwkv6_workspace(b, h, t, code),
+    work = torch.empty(workspace_bytes(b, h, t)
+                       if r.dtype == torch.bfloat16 else 0,
                        dtype=torch.uint8, device=r.device)
-    rc = lib.mapsdi_rwkv6(
+    rc = _lib.lib().mapsdi_rwkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), work.data_ptr() if work.numel() else None, b, h, t,
-        n, chunk, code,
+        s_out.data_ptr(), work.data_ptr() if work.numel() else None,
+        work.numel(), b, h, t, n, chunk, SEGMENT_CHUNKS, code,
         r.device.index or 0, torch.cuda.current_stream(r.device).cuda_stream)
     _lib.check(rc, what)
     count_launch(what)
