@@ -891,6 +891,7 @@ def attention_work(torch, dev, shape):
     from repro_torch.kernels import selfcheck
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.kernel import tiles
     label, b, h, kh, s_q, s_k, d, causal = shape
     nbytes = 2 * (2 * b * h * s_q * d + 2 * b * kh * s_k * d)
     pairs = b * h * attention_pairs(s_q, s_k, causal)
@@ -902,7 +903,8 @@ def attention_work(torch, dev, shape):
             [lambda x=x: attention_ref(*x, causal=causal) for x in ins],
             [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=causal)
              for x in ins],
-            nbytes, 4 * pairs * d, pairs, f"{label} B={b} H={h} S={s_q} D={d}")
+            nbytes, 4 * pairs * d, pairs,
+            f"{label} B={b} H={h} S={s_q} D={d} tiles {tiles(d)}")
 
 
 def lm_kernel_phase(torch, dev):

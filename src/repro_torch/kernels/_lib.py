@@ -48,10 +48,10 @@ SIGNATURES = {
     # xdt, la, b, c, s0, y, s_out, work, work_bytes, b, h, t, p, n, chunk,
     # seg_chunks, dtype, device, stream
     "mapsdi_mamba2_ssd": [_vp] * 8 + [_i64] + [_i32] * 9 + [_vp],
-    # q, k, v, o, b, h, kh, sq, sk, d, kv_len, causal, window, scale, dtype,
-    # device, stream
-    "mapsdi_flash_attention": [_vp] * 4 + [_i32] * 9 + [_f32, _i32, _i32,
-                                                        _vp],
+    # q, k, v, o, b, h, kh, sq, sk, d, kv_len, causal, window, scale,
+    # block_q, block_k, dtype, device, stream
+    "mapsdi_flash_attention": [_vp] * 4 + [_i32] * 9 + [_f32] + [_i32] * 4
+                              + [_vp],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

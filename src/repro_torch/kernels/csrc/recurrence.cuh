@@ -1,5 +1,6 @@
 // Helpers shared by the chunked-recurrence kernels (rwkv6.cu,
-// mamba2_ssd.cu).
+// mamba2_ssd.cu); flash_attention.cu takes the bf16 route's copies,
+// ldmatrix, mma.sync, ex2 and split from here too.
 //
 // The float32 route (selfcheck cases only) keeps the register-tiled
 // CUDA-core product (tile_product). The bfloat16 route, the one the

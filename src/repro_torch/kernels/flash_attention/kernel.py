@@ -7,7 +7,7 @@ reported a CUDA error, and adds one to its launch count.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -16,6 +16,15 @@ from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
 #: head sizes the kernel is compiled for (every ``d_head`` of the configs,
 #: and the reduced configs' 16)
 HEAD_SIZES = (16, 32, 64, 80, 112, 128, 256)
+
+
+def tiles(d: int) -> Tuple[int, int]:
+    """(block_q, block_k) of the bf16 route at head size ``d``: q rows per
+    block (16 per warp, 4 warps) and k/v rows per tile, passed to the
+    kernel. k tiles of 64 rows, 32 at D = 256, where the output
+    accumulators take 128 registers a thread (at 64 rows ptxas spills).
+    The float32 route keeps tiles of its own."""
+    return 64, (32 if d > 128 else 64)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,15 +59,20 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.dtype != q.dtype:
             raise ValueError(f"{what}: q, k and v must share a dtype")
     code = float_code(q, what)
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    # the bf16 route copies 16-byte pieces: a view that starts elsewhere
+    # is copied to fresh (aligned) memory
+    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
     scale = d ** -0.5 if scale is None else float(scale)
+    block_q, block_k = tiles(d)
     rc = _lib.lib().mapsdi_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kh,
-        s_q, s_k, d, kv, int(causal), int(window or 0), scale, code,
-        q.device.index or 0, torch.cuda.current_stream(q.device).cuda_stream)
+        s_q, s_k, d, kv, int(causal), int(window or 0), scale, block_q,
+        block_k, code, q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _lib.check(rc, what)
     count_launch(what)
     return o

@@ -23,7 +23,7 @@ import torch
 from repro_torch.relalg.guard import host_int
 from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
 
-from .flash_attention.kernel import flash_attention_kernel
+from .flash_attention.kernel import flash_attention_kernel, tiles
 from .flash_attention.ref import attention_ref
 from .mamba2.kernel import CHUNK as SSD_CHUNK
 from .mamba2.kernel import SEGMENT_CHUNKS as SSD_SEGMENT_CHUNKS
@@ -323,24 +323,25 @@ ATTENTION_PATH_SHAPES = (
 )
 
 
-def attention_cases(device: torch.device,
-                    path_shapes=ATTENTION_PATH_SHAPES,
-                    seed: int = 0) -> List[Case]:
-    """The flash kernel at the paths' shapes in bfloat16 (the models'
-    dtype), and at the edge cases in float32 and bfloat16: the reference
-    kernel tests' MHA, GQA 2:1, MQA, windows 32 and 128, a kv_len mask
-    with Sq = 1 and S = 200 (not a tile multiple); non-causal, every head
-    size the kernel takes, Sq < Sk with kv_len < Sk, a window narrower
-    than a tile, and rows that no key reaches (kv_len < Sq, kv_len = 0)."""
-    out: List[Case] = []
+def attention_specs(path_shapes=ATTENTION_PATH_SHAPES, seed: int = 0):
+    """The flash kernel's checks as ``(label, (B, H, KH, Sq, Sk, D), dtype,
+    kwargs, seed)``: the paths' shapes in bfloat16 (the models' dtype), and
+    the edge cases in float32 and bfloat16: the reference kernel tests'
+    MHA, GQA 2:1, MQA, windows 32 and 128, a kv_len mask with Sq = 1 and
+    S = 200 (not a tile multiple); non-causal, every head size the kernel
+    takes, Sq < Sk with kv_len < Sk, a window narrower than a tile, and
+    rows that no key reaches (kv_len < Sq, kv_len = 0). Then the edges of
+    the bf16 route's tiles (``kernel.tiles``): Sk one k tile + 1 and
+    Sk = 1 (the copy's zero fill), D = 256 across its own k tiles, GQA 4:1
+    causal with Sq < Sk and kv_len < Sk, Sq not a q tile multiple under
+    the causal schedule, and a sharp softmax (scores of standard deviation
+    about 20, as random-init whisper gives them)."""
+    out = []
 
     def add(label, b, h, kh, s_q, s_k, d, dtype=torch.float32, **kw):
-        x = attention_inputs(device, b, h, kh, s_q, s_k, d, dtype=dtype,
-                             seed=seed + len(out))
         name = "bf16" if dtype == torch.bfloat16 else "f32"
-        out.append(Case("flash_attention", f"{label} {name}",
-                        lambda: flash_attention_kernel(*x, **kw),
-                        lambda: attention_ref(*x, **kw)))
+        out.append((f"{label} {name}", (b, h, kh, s_q, s_k, d), dtype, kw,
+                    seed + len(out)))
 
     for label, b, h, kh, s_q, s_k, d, causal in path_shapes:
         add(f"path {label} B={b} H={h} S={s_q} D={d}", b, h, kh, s_q, s_k,
@@ -367,6 +368,40 @@ def attention_cases(device: torch.device,
         add("Sq=1 causal decode Sk=77", 2, 4, 2, 1, 77, 128, dtype)
         for d in (16, 112, 256):
             add(f"D={d} S=130", 1, 2, 2, 130, 130, d, dtype)
+    # the bf16 route's tile edges (after the cases above, whose seeds stay
+    # as they were)
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (64, 256):
+            block_q, block_k = tiles(d)
+            add(f"Sk={block_k + 1} (one k tile + 1) non-causal D={d}", 1, 2,
+                2, 40, block_k + 1, d, dtype, causal=False)
+            add(f"Sq={3 * block_q + 17} (not a q tile multiple) causal "
+                f"D={d}", 1, 2, 1, 3 * block_q + 17, 3 * block_q + 17, d,
+                dtype)
+        add("Sk=1 non-causal", 2, 2, 2, 5, 1, 64, dtype, causal=False)
+        add("Sk=1 causal Sq=1", 1, 4, 2, 1, 1, 80, dtype)
+        add("D=256 S=300 causal", 1, 2, 2, 300, 300, 256, dtype)
+        add("GQA 4:1 causal Sq=90 < Sk=260 kv_len=200", 1, 8, 2, 90, 260,
+            80, dtype, kv_len=200)
+        add("sharp softmax (scores sd 20) S=333", 1, 4, 4, 333, 333, 64,
+            dtype, scale=20 / 8)
+        add("sharp softmax (scores sd 20) non-causal D=80", 2, 2, 2, 150,
+            300, 80, dtype, causal=False, scale=20 / 80 ** 0.5)
+    return out
+
+
+def attention_cases(device: torch.device,
+                    path_shapes=ATTENTION_PATH_SHAPES,
+                    seed: int = 0) -> List[Case]:
+    """Every check of ``attention_specs`` as a kernel-versus-plain case on
+    ``device``."""
+    out: List[Case] = []
+    for label, shape, dtype, kw, case_seed in attention_specs(path_shapes,
+                                                              seed):
+        x = attention_inputs(device, *shape, dtype=dtype, seed=case_seed)
+        out.append(Case("flash_attention", label,
+                        lambda x=x, kw=kw: flash_attention_kernel(*x, **kw),
+                        lambda x=x, kw=kw: attention_ref(*x, **kw)))
     return out
 
 
