@@ -28,10 +28,13 @@ no result):
 3. Every kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer code), at N = 2**20 rows for K = 1, 2, 5 and 10,
    at every (capacity, K) the main path handed the hash δ, and at the
-   edge cases. Then the device time of each kernel and its plain version
-   (CUDA events around back-to-back calls queued behind a sleep kernel,
-   over input copies that together exceed the L2 cache), beside the bound
-   the card's memory and integer rates set.
+   edge cases (for the radix partition also the edges of its tiles:
+   ``selfcheck.radix_specs``). The CUDA launches of one radix partition
+   call, counted by the profiler, must be at most three. Then the device
+   time of each kernel and its plain version (CUDA events around
+   back-to-back calls queued behind a sleep kernel, over input copies that
+   together exceed the L2 cache), beside the bound the card's memory and
+   integer rates set and the share of it reached.
 4. The language models at full width and depth on random weights from a
    seeded ``torch.Generator`` on the card, with their own counts:
    ``make_loss_fn`` of ``rwkv6-7b`` (32 layers) and ``zamba2-2.7b`` (54
@@ -447,6 +450,29 @@ def timing_work(torch, dev, n: int, k: int):
     }
 
 
+def radix_call_launches(torch, dev):
+    """Names of the CUDA launches (kernels and memsets) that one radix
+    partition call makes on the card, wrapper included, as the profiler
+    records them."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.radix_partition import radix_partition_kernel
+    from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
+    rows = np.random.default_rng(2).integers(0, N_MAIN // 4, (N_MAIN, 5))
+    x = torch.from_numpy(rows.astype(np.int32)).to(dev)
+    cnt = torch.tensor(N_MAIN, dtype=torch.int32, device=dev)
+    kw = dict(n_buckets=RADIX_DEDUP_BUCKETS, order_preserving=True,
+              cap_bucket=_radix_dedup_cap(N_MAIN, RADIX_DEDUP_BUCKETS))
+    radix_partition_kernel(x, cnt, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        radix_partition_kernel(x, cnt, **kw)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def kernel_phase(torch, dev, path_shapes):
     from repro_torch.kernels import selfcheck
 
@@ -462,6 +488,11 @@ def kernel_phase(torch, dev, path_shapes):
     check(not any(bad.values()), f"kernel/plain mismatches: {bad}")
     check({c.kernel for c in cases} == set(INT_KERNELS),
           "a kernel has no case")
+    names = radix_call_launches(torch, dev)
+    log(f"radix_partition: one call at N={N_MAIN} K=5 makes {len(names)} "
+        f"CUDA launches: {names}")
+    check(1 <= len(names) <= 3, "a radix_partition call makes "
+          f"{len(names)} CUDA launches (profiler), not 1 to 3")
 
     # time N = 2**20 at K = 5 and 10, and the largest δ input of each width
     # the main path had
@@ -479,14 +510,15 @@ def kernel_phase(torch, dev, path_shapes):
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = nops / INT32_OPS_PER_S * 1e3
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
+            bound = max(bytes_ms, ops_ms)
             results[(name, n, k)] = {
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms), "bound_by": bound_by,
-                "host_bound": k_host, "plain_host_bound": p_host}
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "host_bound": k_host,
+                "plain_host_bound": p_host}
             log(f"time {name:20s} N={n:8d} K={k:2d} kernel {ms:.4f} ms  "
-                f"plain {plain_ms:.4f} ms  bound {max(bytes_ms, ops_ms):.4f}"
-                f" ms ({bound_by})  host-bound kernel {k_host} plain "
-                f"{p_host}")
+                f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({bound_by}"
+                f", {100 * bound / ms:.1f}% of it)  host-bound kernel "
+                f"{k_host} plain {p_host}")
     # the kernels line reports the sink δ's width (5-column triples) at
     # its largest main-path input
     report = (largest[5], 5) if 5 in largest else (N_MAIN, 5)

@@ -72,6 +72,19 @@ def float_code(x: torch.Tensor, what: str) -> int:
     return _FLOAT_CODES[x.dtype]
 
 
+def aligned16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as a contiguous tensor whose data starts on a 16-byte boundary.
+
+    The kernels that copy 16-byte pieces (flash attention, rwkv6,
+    mamba2_ssd, radix partition) take their inputs through this, and no
+    other code makes the decision: an aligned contiguous tensor is passed
+    as it is, a view that starts elsewhere is copied to fresh memory (the
+    allocator aligns every allocation).
+    """
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def refuse_grad(what: str, *xs: torch.Tensor) -> None:
     """The float kernels have no backward: an input that requires a
     gradient raises instead of getting a silently wrong one."""

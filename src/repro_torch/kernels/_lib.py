@@ -39,9 +39,10 @@ SIGNATURES = {
     "mapsdi_hash_neighbor_flags": [_vp, _vp, _vp, _vp, _i64, _i32, _i32,
                                    _vp],
     # data, count, n, k, n_buckets, cap_bucket, shift, n_key, key_lo,
-    # key_hi, block_scratch, raw_counts, out, device, stream
-    "mapsdi_radix_partition": [_vp, _vp, _i32, _i32, _i32, _i32, _i32,
-                               _i32, _u64, _u64, _vp, _vp, _vp, _i32, _vp],
+    # key_hi, tile_rows, staged, scratch, scratch_bytes, out, counts,
+    # overflow, device, stream
+    "mapsdi_radix_partition": [_vp, _vp] + [_i32] * 6 + [_u64, _u64, _i32,
+                               _i32, _vp, _i64, _vp, _vp, _vp, _i32, _vp],
     # r, k, v, w, u, s0, y, s_out, work, work_bytes, b, h, t, n, chunk,
     # seg_chunks, dtype, device, stream
     "mapsdi_rwkv6": [_vp] * 9 + [_i64] + [_i32] * 8 + [_vp],

@@ -1,9 +1,11 @@
 """Wrapper around the CUDA flash-attention kernel
 (``csrc/flash_attention.cu``).
 
-It checks its inputs, allocates the output with ``torch.empty``, launches
-on the current stream without synchronising, raises if the launch
-reported a CUDA error, and adds one to its launch count.
+It checks its inputs, copies any that does not start on a 16-byte boundary
+(:func:`repro_torch.kernels.aligned16`), allocates the output with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch reported a CUDA error, and adds one to its launch
+count.
 """
 from __future__ import annotations
 
@@ -11,7 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
+from repro_torch.kernels import (_lib, aligned16, count_launch, float_code,
+                                 refuse_grad)
 
 #: head sizes the kernel is compiled for (every ``d_head`` of the configs,
 #: and the reduced configs' 16)
@@ -59,10 +62,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if x.dtype != q.dtype:
             raise ValueError(f"{what}: q, k and v must share a dtype")
     code = float_code(q, what)
-    # the bf16 route copies 16-byte pieces: a view that starts elsewhere
-    # is copied to fresh (aligned) memory
-    q, k, v = (x.contiguous() if x.data_ptr() % 16 == 0 else x.clone(
-        memory_format=torch.contiguous_format) for x in (q, k, v))
+    q, k, v = (aligned16(x) for x in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o

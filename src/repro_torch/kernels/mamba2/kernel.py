@@ -1,10 +1,12 @@
 """Wrapper around the CUDA Mamba2 SSD kernel (``csrc/mamba2_ssd.cu``).
 
-It checks its inputs, allocates the outputs and the kernel's workspace
-(the bf16 route's c b^T per chunk and per-segment transitions) with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch reported a CUDA error, and adds one to its launch
-count (one call, though the bf16 route runs three CUDA kernels).
+It checks its inputs, copies any that does not start on a 16-byte boundary
+(:func:`repro_torch.kernels.aligned16`), allocates the outputs and the
+kernel's workspace (the bf16 route's c b^T per chunk and per-segment
+transitions) with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch reported a CUDA error, and adds one to
+its launch count (one call, though the bf16 route runs three CUDA
+kernels).
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
+from repro_torch.kernels import (_lib, aligned16, count_launch, float_code,
+                                 refuse_grad)
 
 #: the kernel's compiled chunk, head dim and state size
 CHUNK = 64
@@ -64,8 +67,8 @@ def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
         raise ValueError(f"{what}: state must be [B, H, N, P] float32 on "
                          "xdt's device")
     code = float_code(xdt, what)
-    xdt, la, b, c = (x.contiguous() for x in (xdt, la, b, c))
-    s0 = None if state is None else state.contiguous()
+    xdt, la, b, c = (aligned16(x) for x in (xdt, la, b, c))
+    s0 = None if state is None else aligned16(state)
     y = torch.empty_like(xdt)
     s_out = torch.empty((bb, h, n, p), dtype=torch.float32,
                         device=xdt.device)

@@ -1,9 +1,11 @@
 """Wrapper around the CUDA radix partition (``csrc/radix_partition.cu``).
 
-The wrapper allocates the PAD-filled output, the raw per-bucket counts and
-the per-block scratch histogram, launches the three kernels of the C entry
-point on the current stream, and derives the clamped counts and the
-overflow flag on the device. ``count`` stays on the device: no host sync.
+The wrapper allocates the output, the counts, the overflow flag and the
+scratch (a tile ticket and one status word per bucket and tile) with
+``torch.empty``; the C entry point clears the scratch and launches the
+one-pass kernel on the current stream (two CUDA launches), which writes
+every element of the outputs, PAD tails, clamped counts and the flag
+included. ``count`` stays on the device: no host sync.
 """
 from __future__ import annotations
 
@@ -11,15 +13,17 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib, count_launch
+from repro_torch.kernels import _lib, aligned16, count_launch
 from repro_torch.kernels.rowhash.kernel import _stream, check_rows
 
-from .ref import PAD_ID, bucket_shift
+from .ref import bucket_shift
 
-#: rows per block of the histogram and scatter kernels (``kThreads``)
-BLOCK_ROWS = 256
-#: the scatter's shared table holds 8 warps x (n_buckets + 1) counts, and
-#: the scan launches one block per bucket
+#: rows per tile the ``.cu`` is compiled for (it refuses any other)
+TILE_ROWS = (1024, 512, 256, 128, 64, 32)
+#: shared memory a staged tile of R rows x K int32 may take
+STAGE_BYTES = 40 * 1024
+#: the exchange-mode modulo is a mask, and the kernel's shared tables hold
+#: up to 8 warps x n_buckets counts
 MAX_BUCKETS = 1024
 #: key columns are passed packed, one byte each, in two 64-bit words
 MAX_KEY_COLS = 16
@@ -27,14 +31,24 @@ MAX_KEY_COL_INDEX = 255
 INT32_MAX = 2**31 - 1
 
 
+def tiles(k: int) -> Tuple[int, bool]:
+    """(rows per tile R, staged) at K columns: the most rows of
+    ``TILE_ROWS`` whose R x K int32 tile fits ``STAGE_BYTES``. Past
+    K = 320 no tile of 32 rows fits; the tile is then not staged (R = 32)
+    and the kernel reads its rows from device memory."""
+    for rows in TILE_ROWS:
+        if rows * k * 4 <= STAGE_BYTES:
+            return rows, True
+    return TILE_ROWS[-1], False
+
+
 def kernel_feasible(n: int, k: int, n_buckets: int, cap_bucket: int,
                     key_cols: Optional[Tuple[int, ...]] = None) -> bool:
     """True iff the CUDA kernel takes this shape.
 
-    A power-of-two bucket count in [2, MAX_BUCKETS] (the exchange-mode
-    modulo is a mask, and the scatter's shared table is sized by it), at
-    most MAX_KEY_COLS key columns of index <= MAX_KEY_COL_INDEX, and row
-    and slot indices that fit int32.
+    A power-of-two bucket count in [2, MAX_BUCKETS], at most MAX_KEY_COLS
+    key columns of index <= MAX_KEY_COL_INDEX, and row and slot indices
+    that fit int32.
     """
     cols = tuple(range(k)) if key_cols is None else tuple(key_cols)
     if n < 1 or k < 1 or cap_bucket < 1:
@@ -45,7 +59,7 @@ def kernel_feasible(n: int, k: int, n_buckets: int, cap_bucket: int,
     if not 1 <= len(cols) <= MAX_KEY_COLS or \
             any(c < 0 or c >= k or c > MAX_KEY_COL_INDEX for c in cols):
         return False
-    return n <= INT32_MAX - BLOCK_ROWS and n_buckets * cap_bucket <= INT32_MAX
+    return n <= INT32_MAX and n_buckets * cap_bucket <= INT32_MAX
 
 
 def _pack_cols(cols: Tuple[int, ...]) -> Tuple[int, int]:
@@ -73,23 +87,26 @@ def radix_partition_kernel(data: torch.Tensor, count, *, n_buckets: int,
             f"radix_partition kernel does not take n={n} k={k} "
             f"n_buckets={n_buckets} cap_bucket={cap_bucket} "
             f"key_cols={key_cols}")
+    data = aligned16(data)         # tiles are copied 16 bytes at a time
     cols = tuple(range(k)) if key_cols is None else tuple(key_cols)
     shift = bucket_shift(n_buckets) if order_preserving else 0
     dev = data.device
     count_t = torch.as_tensor(count, dtype=torch.int32, device=dev
                               ).reshape(())
-    n_blocks = -(-n // BLOCK_ROWS)
-    scratch = torch.empty(n_blocks * n_buckets, dtype=torch.int32,
+    rows, staged = tiles(k)
+    # the tile ticket, then one status word per (bucket, tile)
+    scratch = torch.empty(1 + -(-n // rows) * n_buckets, dtype=torch.int64,
                           device=dev)
-    raw = torch.empty(n_buckets, dtype=torch.int32, device=dev)
-    out = torch.full((n_buckets * cap_bucket, k), PAD_ID, dtype=torch.int32,
-                     device=dev)
+    out = torch.empty((n_buckets * cap_bucket, k), dtype=torch.int32,
+                      device=dev)
+    counts = torch.empty(n_buckets, dtype=torch.int32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
     lo, hi = _pack_cols(cols)
     rc = _lib.lib().mapsdi_radix_partition(
         data.data_ptr(), count_t.data_ptr(), n, k, n_buckets, cap_bucket,
-        shift, len(cols), lo, hi, scratch.data_ptr(), raw.data_ptr(),
-        out.data_ptr(), dev.index or 0, _stream(data))
+        shift, len(cols), lo, hi, rows, int(staged), scratch.data_ptr(),
+        scratch.numel() * 8, out.data_ptr(), counts.data_ptr(),
+        overflow.data_ptr(), dev.index or 0, _stream(data))
     _lib.check(rc, "radix_partition")
     count_launch("radix_partition")
-    return (out.reshape(n_buckets, cap_bucket, k),
-            torch.clamp(raw, max=cap_bucket), torch.any(raw > cap_bucket))
+    return out.reshape(n_buckets, cap_bucket, k), counts, overflow

@@ -1,10 +1,11 @@
 """Wrapper around the CUDA RWKV6 kernel (``csrc/rwkv6.cu``).
 
-It checks its inputs, allocates the outputs and the kernel's workspace
-(the bf16 route's per-segment transitions) with ``torch.empty``, launches
-on the current stream without synchronising, raises if the launch
-reported a CUDA error, and adds one to its launch count (one call, though
-the bf16 route runs two CUDA kernels).
+It checks its inputs, copies any that does not start on a 16-byte boundary
+(:func:`repro_torch.kernels.aligned16`), allocates the outputs and the
+kernel's workspace (the bf16 route's per-segment transitions) with
+``torch.empty``, launches on the current stream without synchronising,
+raises if the launch reported a CUDA error, and adds one to its launch
+count (one call, though the bf16 route runs two CUDA kernels).
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _lib, count_launch, float_code, refuse_grad
+from repro_torch.kernels import (_lib, aligned16, count_launch, float_code,
+                                 refuse_grad)
 
 #: the kernel's compiled chunk and head size
 CHUNK = 32
@@ -60,8 +62,8 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: state must be [B, H, N, N] float32 on r's "
                          "device")
     code = float_code(r, what)
-    r, k, v, w, u = (x.contiguous() for x in (r, k, v, w, u))
-    s0 = None if state is None else state.contiguous()
+    r, k, v, w, u = (aligned16(x) for x in (r, k, v, w, u))
+    s0 = None if state is None else aligned16(state)
     y = torch.empty_like(r)
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if b * h == 0:

@@ -15,7 +15,7 @@ value, one bfloat16 step (at most 2**-7 of the value). Inputs come from
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +29,7 @@ from .mamba2.kernel import CHUNK as SSD_CHUNK
 from .mamba2.kernel import SEGMENT_CHUNKS as SSD_SEGMENT_CHUNKS
 from .mamba2.kernel import mamba2_ssd_kernel
 from .mamba2.ref import mamba2_ssd_ref
-from .radix_partition.kernel import radix_partition_kernel
+from .radix_partition.kernel import radix_partition_kernel, tiles
 from .radix_partition.ref import PAD_ID, radix_partition_ref
 from .rowhash.kernel import hash_neighbor_flags_kernel, rowhash_kernel
 from .rowhash.ref import hash_neighbor_flags_ref, rowhash_ref
@@ -74,16 +74,130 @@ def _tuple(x) -> Tuple[torch.Tensor, ...]:
     return x if isinstance(x, tuple) else (x,)
 
 
+@dataclasses.dataclass
+class RadixSpec:
+    """One radix partition check: the rows, ``count`` and the keywords of
+    :func:`.radix_partition.ref.radix_partition_ref`; ``offset`` hands
+    the kernel a view that starts 4 bytes past a 16-byte boundary."""
+    label: str
+    data: np.ndarray
+    count: int
+    n_buckets: int
+    cap_bucket: int
+    key_cols: Optional[Tuple[int, ...]] = None
+    order_preserving: bool = True
+    offset: bool = False
+
+    def kwargs(self) -> dict:
+        return dict(n_buckets=self.n_buckets, cap_bucket=self.cap_bucket,
+                    key_cols=self.key_cols,
+                    order_preserving=self.order_preserving)
+
+
+def largest_staged_k() -> int:
+    """The largest K whose tile ``tiles`` still stages (at its fewest
+    rows); one column more and the kernel reads its rows from device
+    memory."""
+    k = 1
+    while tiles(k + 1)[1]:
+        k += 1
+    return k
+
+
+def radix_specs(n_main: int, ks=(5, 10),
+                path_shapes: Sequence[Tuple[int, int]] = (),
+                seed: int = 0) -> List[RadixSpec]:
+    """Every radix partition check: ``n_main`` rows at each K in ``ks``
+    (N not a multiple of a tile, count < N, exchange mode on a key-column
+    subset), each ``(capacity, K)`` in ``path_shapes`` with the δ's own
+    bucket capacity, N = 1, every row in one bucket (overflow), rows
+    whose content is all PAD; then the edges of the one-pass kernel's
+    tiles (``kernel.tiles``): N = one tile + 1, ``count`` on a tile
+    boundary, every row in one bucket across many tiles, 1024 buckets in
+    exchange mode, the largest K that is staged and the first that is
+    not, and an input view off a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    nb = RADIX_DEDUP_BUCKETS
+    out: List[RadixSpec] = []
+    odd = n_main - n_main // 7 + 3          # not a multiple of a tile
+    for k in ks:
+        main = _rows(rng, n_main, k, hi=n_main // 4)   # duplicate-heavy
+        cb = _radix_dedup_cap(n_main, nb)
+        key_cols = (1, 0) if k > 1 else (0,)
+        out += [
+            RadixSpec(f"N={n_main} K={k} nb={nb}", main, n_main, nb, cb),
+            RadixSpec(f"N={odd} K={k} nb={nb}", main[:odd], odd, nb, cb),
+            RadixSpec(f"count<N K={k} nb={nb}", main, n_main - n_main // 3,
+                      nb, cb),
+            RadixSpec(f"N={n_main} K={k} nb=64 exchange key_cols={key_cols}",
+                      main, n_main, 64, n_main // 32, key_cols=key_cols,
+                      order_preserving=False)]
+    for n, k in path_shapes:
+        count = n - n // 3
+        out.append(RadixSpec(f"path N={n} K={k} count={count} nb={nb}",
+                             _rows(rng, n, k, hi=max(2, n // 4)), count, nb,
+                             _radix_dedup_cap(n, nb)))
+    out.append(RadixSpec("N=1", _rows(rng, 1, 5), 1, 8, 8))
+    out.append(RadixSpec("every row in one bucket (overflow)",
+                         np.repeat(_rows(rng, 1, 3), 4096, axis=0), 4096, 8,
+                         1000))
+    pad = np.full((2048, 3), PAD_ID, dtype=np.int32)
+    pad[:1024] = _rows(rng, 1024, 3, hi=7)
+    out.append(RadixSpec("all-PAD content rows", pad, 2048, 8, 512))
+    # the one-pass kernel's tiles
+    k = 5
+    r = tiles(k)[0]
+    x = _rows(rng, r + 1, k, hi=1 << 12)
+    out.append(RadixSpec(f"N={r + 1} (one tile + 1) K={k}", x, r + 1, nb,
+                         _radix_dedup_cap(r + 1, nb)))
+    x = _rows(rng, 3 * r + 100, k, hi=1 << 12)
+    out.append(RadixSpec(f"count={2 * r} on a tile boundary N={3 * r + 100}",
+                         x, 2 * r, nb, _radix_dedup_cap(3 * r + 100, nb)))
+    n = 20 * r + 7
+    out.append(RadixSpec(f"every row in one bucket across {-(-n // r)} "
+                         f"tiles", np.repeat(_rows(rng, 1, k), n, axis=0), n,
+                         nb, n))
+    x = _rows(rng, n_main, k, hi=1 << 30)
+    out.append(RadixSpec(f"N={n_main} nb=1024 exchange", x, n_main, 1024,
+                         _radix_dedup_cap(n_main, 1024),
+                         order_preserving=False))
+    big = largest_staged_k()
+    for kk, label in ((big, "the largest staged K"),
+                      (big + 1, "the first unstaged K")):
+        rows = tiles(kk)[0]
+        n = 5 * rows + 7
+        x = _rows(rng, n, kk, hi=64)
+        cols = (min(kk - 1, 255), 0, kk // 2)
+        out.append(RadixSpec(f"K={kk} ({label}, R={rows}) key_cols={cols}",
+                             x, n - 3, nb, _radix_dedup_cap(n, nb),
+                             key_cols=cols))
+    x = _rows(rng, odd, k, hi=n_main // 4)
+    out.append(RadixSpec(f"view off a 16-byte boundary N={odd} K={k}", x,
+                         odd - 5, nb, _radix_dedup_cap(odd, nb),
+                         offset=True))
+    return out
+
+
+def offset_view(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts one element past its
+    allocation's start (off a 16-byte boundary for 2- to 8-byte
+    elements)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
 def cases(device: torch.device, n_main: int, ks=(5, 10),
           path_shapes: Sequence[Tuple[int, int]] = (),
           seed: int = 0) -> List[Case]:
     """Every kernel at the main path's shapes and at the edge cases.
 
     ``n_main`` rows at each K in ``ks``, and each ``(capacity, K)`` in
-    ``path_shapes`` (the shapes a run handed the hash δ), each with the δ's
-    own radix bucket capacity; then N not a multiple of the block, count <
-    N, N = 1, every row in one bucket, rows whose content is all PAD, and
-    real 32-bit collisions for the neighbour flags."""
+    ``path_shapes`` (the shapes a run handed the hash δ); then N not a
+    multiple of the block, count < N, N = 1, every row in one bucket, rows
+    whose content is all PAD, and real 32-bit collisions for the neighbour
+    flags. The radix partition's cases are ``radix_specs``."""
     rng = np.random.default_rng(seed)
     out: List[Case] = []
 
@@ -101,17 +215,6 @@ def cases(device: torch.device, n_main: int, ks=(5, 10),
                         lambda: hash_neighbor_flags_kernel(t),
                         lambda: hash_neighbor_flags_ref(t)))
 
-    def add_radix(label: str, x: np.ndarray, count: int, nb: int, cb: int,
-                  key_cols=None, order_preserving=True) -> None:
-        t = dev(x)
-        c = torch.tensor(count, dtype=torch.int32, device=device)
-        kw = dict(n_buckets=nb, cap_bucket=cb, key_cols=key_cols,
-                  order_preserving=order_preserving)
-        out.append(Case("radix_partition", label,
-                        lambda: radix_partition_kernel(t, c, **kw),
-                        lambda: radix_partition_ref(t, c, **kw)))
-
-    nb = RADIX_DEDUP_BUCKETS
     odd = n_main - n_main // 7 + 3          # not a multiple of 256
     for k in ks:
         main = _rows(rng, n_main, k, hi=n_main // 4)   # duplicate-heavy
@@ -123,39 +226,34 @@ def cases(device: torch.device, n_main: int, ks=(5, 10),
                   _hash_sorted(_rows(rng, n_main, k, hi=16)))
         add_flags(f"N={odd} K={k}", _hash_sorted(main[:odd]))
         add_flags(f"count<N K={k}", _hash_sorted(masked))
-        cb = _radix_dedup_cap(n_main, nb)
-        add_radix(f"N={n_main} K={k} nb={nb}", main, n_main, nb, cb)
-        add_radix(f"N={odd} K={k} nb={nb}", main[:odd], odd, nb, cb)
-        add_radix(f"count<N K={k} nb={nb}", main, n_main - n_main // 3, nb,
-                  cb)
-        key_cols = (1, 0) if k > 1 else (0,)
-        add_radix(f"N={n_main} K={k} nb=64 exchange key_cols={key_cols}",
-                  main, n_main, 64, n_main // 32, key_cols=key_cols,
-                  order_preserving=False)
     for n, k in path_shapes:
         rows = _rows(rng, n, k, hi=max(2, n // 4))
-        count = n - n // 3
         add_hash(f"path N={n} K={k}", rows)
         add_flags(f"path N={n} K={k} hash-sorted",
-                  _hash_sorted(_pad_tail(rows, count)))
-        add_radix(f"path N={n} K={k} count={count} nb={nb}", rows, count,
-                  nb, _radix_dedup_cap(n, nb))
+                  _hash_sorted(_pad_tail(rows, n - n // 3)))
     one = _rows(rng, 1, 5)
     add_hash("N=1", one)
     add_flags("N=1", one)
-    add_radix("N=1", one, 1, 8, 8)
     same = np.repeat(_rows(rng, 1, 3), 4096, axis=0)
     add_hash("one row value", same)
     add_flags("one row value", same)
-    add_radix("every row in one bucket (overflow)", same, 4096, 8, 1000)
     pad = np.full((2048, 3), PAD_ID, dtype=np.int32)
     pad[:1024] = _rows(rng, 1024, 3, hi=7)
     add_hash("all-PAD content rows", pad)
     add_flags("all-PAD content rows", _hash_sorted(pad))
-    add_radix("all-PAD content rows", pad, 2048, 8, 512)
     coll = np.asarray([r for a, b in COLLIDING_PAIRS for r in (a, b, a, b)],
                       dtype=np.int32)
     add_flags("32-bit collisions", _hash_sorted(coll))
+    for spec in radix_specs(n_main, ks, path_shapes, seed + 1):
+        t = dev(spec.data)
+        x = offset_view(t) if spec.offset else t
+        c = torch.tensor(spec.count, dtype=torch.int32, device=device)
+        kw = spec.kwargs()
+        out.append(Case("radix_partition", spec.label,
+                        lambda x=x, c=c, kw=kw:
+                        radix_partition_kernel(x, c, **kw),
+                        lambda t=t, c=c, kw=kw:
+                        radix_partition_ref(t, c, **kw)))
     return out
 
 

@@ -290,3 +290,17 @@ def test_cuda_kernel_matches_plain_version(cuda_device):
         if c.kernel == "mamba2_ssd"]
     bad = {c.label: selfcheck.float_mismatches(c) for c in cases}
     assert not any(n for n, _ in bad.values()), bad
+
+
+def test_cuda_kernel_takes_unaligned_views(cuda_device):
+    # contiguous views that start one element past a 16-byte boundary
+    # (2 bytes for bf16, 4 for float32): the wrapper copies them, so the
+    # kernel's 16-byte copies stay aligned
+    from repro_torch.kernels import selfcheck
+    x = selfcheck.ssd_inputs(cuda_device, 1, 2, 150, state=True)
+    views = [selfcheck.offset_view(t) for t in x]
+    assert all(t.data_ptr() % 16 for t in views)
+    got = mamba2_ssd_kernel(*views)
+    assert all(torch.equal(g, w) for g, w in zip(got, mamba2_ssd_kernel(*x)))
+    bad, err = selfcheck.out_of_tolerance(got, mamba2_ssd_ref(*x))
+    assert bad == 0, err
