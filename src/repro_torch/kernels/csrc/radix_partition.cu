@@ -66,7 +66,7 @@
 // blocks load, rank, look back and write in step, so the reads and the
 // writes never overlap and each block's chain of barriers is exposed; the
 // look-back and the write-out each add about a fifth
-// (tools/radix_variants.py, PERF.md). Overlapping one tile's loads with
+// (PERF.md section 6). Overlapping one tile's loads with
 // another's writes inside a block (warp-specialised copies) is the next
 // design.
 #include "mapsdi_hash.cuh"

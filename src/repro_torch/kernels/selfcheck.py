@@ -104,27 +104,40 @@ def largest_staged_k() -> int:
     return k
 
 
-def radix_specs(n_main: int, ks=(5, 10),
-                path_shapes: Sequence[Tuple[int, int]] = (),
-                seed: int = 0) -> List[RadixSpec]:
-    """Every radix partition check: ``n_main`` rows at each K in ``ks``
-    (N not a multiple of a tile, count < N, exchange mode on a key-column
-    subset), each ``(capacity, K)`` in ``path_shapes`` with the δ's own
-    bucket capacity, N = 1, every row in one bucket (overflow), rows
-    whose content is all PAD; then the edges of the one-pass kernel's
-    tiles (``kernel.tiles``): N = one tile + 1, ``count`` on a tile
-    boundary, every row in one bucket across many tiles, 1024 buckets in
-    exchange mode, the largest K that is staged and the first that is
-    not, and an input view off a 16-byte boundary."""
+def _int_inputs(n_main: int, ks, path_shapes: Sequence[Tuple[int, int]],
+                seed: int):
+    """The integer kernels' inputs: ``(label, rows)`` pairs for the row
+    hash and for the neighbour flags, and every radix partition check.
+
+    ``n_main`` rows at each K in ``ks``, and each ``(capacity, K)`` in
+    ``path_shapes`` (the shapes a run handed the hash δ; the radix checks
+    take the δ's own bucket capacity); then N not a multiple of the
+    block, count < N, exchange mode on a key-column subset, N = 1, every
+    row in one bucket, rows whose content is all PAD, and real 32-bit
+    collisions for the neighbour flags. Last, drawn after every other
+    input so that those stay as they were, the edges of the one-pass
+    radix kernel's tiles (``kernel.tiles``): N = one tile + 1, ``count``
+    on a tile boundary, every row in one bucket across many tiles, 1024
+    buckets in exchange mode, the largest K that is staged and the first
+    that is not, and an input view off a 16-byte boundary."""
     rng = np.random.default_rng(seed)
+    hashes: List[Tuple[str, np.ndarray]] = []
+    flags: List[Tuple[str, np.ndarray]] = []
+    radix: List[RadixSpec] = []
     nb = RADIX_DEDUP_BUCKETS
-    out: List[RadixSpec] = []
-    odd = n_main - n_main // 7 + 3          # not a multiple of a tile
+    odd = n_main - n_main // 7 + 3          # not a multiple of 256
     for k in ks:
         main = _rows(rng, n_main, k, hi=n_main // 4)   # duplicate-heavy
+        masked = _pad_tail(main, n_main - n_main // 3)
+        hashes += [(f"N={n_main} K={k}", main), (f"N={odd} K={k}", main[:odd]),
+                   (f"count<N K={k}", masked)]
+        flags += [(f"N={n_main} K={k} hash-sorted",
+                   _hash_sorted(_rows(rng, n_main, k, hi=16))),
+                  (f"N={odd} K={k}", _hash_sorted(main[:odd])),
+                  (f"count<N K={k}", _hash_sorted(masked))]
         cb = _radix_dedup_cap(n_main, nb)
         key_cols = (1, 0) if k > 1 else (0,)
-        out += [
+        radix += [
             RadixSpec(f"N={n_main} K={k} nb={nb}", main, n_main, nb, cb),
             RadixSpec(f"N={odd} K={k} nb={nb}", main[:odd], odd, nb, cb),
             RadixSpec(f"count<N K={k} nb={nb}", main, n_main - n_main // 3,
@@ -133,34 +146,46 @@ def radix_specs(n_main: int, ks=(5, 10),
                       main, n_main, 64, n_main // 32, key_cols=key_cols,
                       order_preserving=False)]
     for n, k in path_shapes:
+        rows = _rows(rng, n, k, hi=max(2, n // 4))
         count = n - n // 3
-        out.append(RadixSpec(f"path N={n} K={k} count={count} nb={nb}",
-                             _rows(rng, n, k, hi=max(2, n // 4)), count, nb,
-                             _radix_dedup_cap(n, nb)))
-    out.append(RadixSpec("N=1", _rows(rng, 1, 5), 1, 8, 8))
-    out.append(RadixSpec("every row in one bucket (overflow)",
-                         np.repeat(_rows(rng, 1, 3), 4096, axis=0), 4096, 8,
-                         1000))
+        hashes.append((f"path N={n} K={k}", rows))
+        flags.append((f"path N={n} K={k} hash-sorted",
+                      _hash_sorted(_pad_tail(rows, count))))
+        radix.append(RadixSpec(f"path N={n} K={k} count={count} nb={nb}",
+                               rows, count, nb, _radix_dedup_cap(n, nb)))
+    one = _rows(rng, 1, 5)
+    same = np.repeat(_rows(rng, 1, 3), 4096, axis=0)
     pad = np.full((2048, 3), PAD_ID, dtype=np.int32)
     pad[:1024] = _rows(rng, 1024, 3, hi=7)
-    out.append(RadixSpec("all-PAD content rows", pad, 2048, 8, 512))
+    hashes += [("N=1", one), ("one row value", same),
+               ("all-PAD content rows", pad)]
+    coll = np.asarray([r for a, b in COLLIDING_PAIRS for r in (a, b, a, b)],
+                      dtype=np.int32)
+    flags += [("N=1", one), ("one row value", same),
+              ("all-PAD content rows", _hash_sorted(pad)),
+              ("32-bit collisions", _hash_sorted(coll))]
+    radix += [RadixSpec("N=1", one, 1, 8, 8),
+              RadixSpec("every row in one bucket (overflow)", same, 4096, 8,
+                        1000),
+              RadixSpec("all-PAD content rows", pad, 2048, 8, 512)]
     # the one-pass kernel's tiles
     k = 5
     r = tiles(k)[0]
     x = _rows(rng, r + 1, k, hi=1 << 12)
-    out.append(RadixSpec(f"N={r + 1} (one tile + 1) K={k}", x, r + 1, nb,
-                         _radix_dedup_cap(r + 1, nb)))
+    radix.append(RadixSpec(f"N={r + 1} (one tile + 1) K={k}", x, r + 1, nb,
+                           _radix_dedup_cap(r + 1, nb)))
     x = _rows(rng, 3 * r + 100, k, hi=1 << 12)
-    out.append(RadixSpec(f"count={2 * r} on a tile boundary N={3 * r + 100}",
-                         x, 2 * r, nb, _radix_dedup_cap(3 * r + 100, nb)))
+    radix.append(RadixSpec(f"count={2 * r} on a tile boundary "
+                           f"N={3 * r + 100}", x, 2 * r, nb,
+                           _radix_dedup_cap(3 * r + 100, nb)))
     n = 20 * r + 7
-    out.append(RadixSpec(f"every row in one bucket across {-(-n // r)} "
-                         f"tiles", np.repeat(_rows(rng, 1, k), n, axis=0), n,
-                         nb, n))
+    radix.append(RadixSpec(f"every row in one bucket across {-(-n // r)} "
+                           f"tiles", np.repeat(_rows(rng, 1, k), n, axis=0),
+                           n, nb, n))
     x = _rows(rng, n_main, k, hi=1 << 30)
-    out.append(RadixSpec(f"N={n_main} nb=1024 exchange", x, n_main, 1024,
-                         _radix_dedup_cap(n_main, 1024),
-                         order_preserving=False))
+    radix.append(RadixSpec(f"N={n_main} nb=1024 exchange", x, n_main, 1024,
+                           _radix_dedup_cap(n_main, 1024),
+                           order_preserving=False))
     big = largest_staged_k()
     for kk, label in ((big, "the largest staged K"),
                       (big + 1, "the first unstaged K")):
@@ -168,14 +193,22 @@ def radix_specs(n_main: int, ks=(5, 10),
         n = 5 * rows + 7
         x = _rows(rng, n, kk, hi=64)
         cols = (min(kk - 1, 255), 0, kk // 2)
-        out.append(RadixSpec(f"K={kk} ({label}, R={rows}) key_cols={cols}",
-                             x, n - 3, nb, _radix_dedup_cap(n, nb),
-                             key_cols=cols))
+        radix.append(RadixSpec(f"K={kk} ({label}, R={rows}) key_cols={cols}",
+                               x, n - 3, nb, _radix_dedup_cap(n, nb),
+                               key_cols=cols))
     x = _rows(rng, odd, k, hi=n_main // 4)
-    out.append(RadixSpec(f"view off a 16-byte boundary N={odd} K={k}", x,
-                         odd - 5, nb, _radix_dedup_cap(odd, nb),
-                         offset=True))
-    return out
+    radix.append(RadixSpec(f"view off a 16-byte boundary N={odd} K={k}", x,
+                           odd - 5, nb, _radix_dedup_cap(odd, nb),
+                           offset=True))
+    return hashes, flags, radix
+
+
+def radix_specs(n_main: int, ks=(5, 10),
+                path_shapes: Sequence[Tuple[int, int]] = (),
+                seed: int = 0) -> List[RadixSpec]:
+    """Every radix partition check of :func:`cases` with the same
+    arguments, on the same inputs (see ``_int_inputs``)."""
+    return _int_inputs(n_main, ks, path_shapes, seed)[2]
 
 
 def offset_view(x: torch.Tensor) -> torch.Tensor:
@@ -191,60 +224,24 @@ def offset_view(x: torch.Tensor) -> torch.Tensor:
 def cases(device: torch.device, n_main: int, ks=(5, 10),
           path_shapes: Sequence[Tuple[int, int]] = (),
           seed: int = 0) -> List[Case]:
-    """Every kernel at the main path's shapes and at the edge cases.
-
-    ``n_main`` rows at each K in ``ks``, and each ``(capacity, K)`` in
-    ``path_shapes`` (the shapes a run handed the hash δ); then N not a
-    multiple of the block, count < N, N = 1, every row in one bucket, rows
-    whose content is all PAD, and real 32-bit collisions for the neighbour
-    flags. The radix partition's cases are ``radix_specs``."""
-    rng = np.random.default_rng(seed)
+    """Every integer kernel at the main path's shapes and at the edge
+    cases of ``_int_inputs``."""
+    hashes, flags, radix = _int_inputs(n_main, ks, path_shapes, seed)
     out: List[Case] = []
 
     def dev(a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    def add_hash(label: str, x: np.ndarray) -> None:
+    for label, x in hashes:
         t = dev(x)
-        out.append(Case("rowhash", label, lambda: rowhash_kernel(t),
-                        lambda: rowhash_ref(t)))
-
-    def add_flags(label: str, x: np.ndarray) -> None:
+        out.append(Case("rowhash", label, lambda t=t: rowhash_kernel(t),
+                        lambda t=t: rowhash_ref(t)))
+    for label, x in flags:
         t = dev(x)
         out.append(Case("hash_neighbor_flags", label,
-                        lambda: hash_neighbor_flags_kernel(t),
-                        lambda: hash_neighbor_flags_ref(t)))
-
-    odd = n_main - n_main // 7 + 3          # not a multiple of 256
-    for k in ks:
-        main = _rows(rng, n_main, k, hi=n_main // 4)   # duplicate-heavy
-        masked = _pad_tail(main, n_main - n_main // 3)
-        add_hash(f"N={n_main} K={k}", main)
-        add_hash(f"N={odd} K={k}", main[:odd])
-        add_hash(f"count<N K={k}", masked)
-        add_flags(f"N={n_main} K={k} hash-sorted",
-                  _hash_sorted(_rows(rng, n_main, k, hi=16)))
-        add_flags(f"N={odd} K={k}", _hash_sorted(main[:odd]))
-        add_flags(f"count<N K={k}", _hash_sorted(masked))
-    for n, k in path_shapes:
-        rows = _rows(rng, n, k, hi=max(2, n // 4))
-        add_hash(f"path N={n} K={k}", rows)
-        add_flags(f"path N={n} K={k} hash-sorted",
-                  _hash_sorted(_pad_tail(rows, n - n // 3)))
-    one = _rows(rng, 1, 5)
-    add_hash("N=1", one)
-    add_flags("N=1", one)
-    same = np.repeat(_rows(rng, 1, 3), 4096, axis=0)
-    add_hash("one row value", same)
-    add_flags("one row value", same)
-    pad = np.full((2048, 3), PAD_ID, dtype=np.int32)
-    pad[:1024] = _rows(rng, 1024, 3, hi=7)
-    add_hash("all-PAD content rows", pad)
-    add_flags("all-PAD content rows", _hash_sorted(pad))
-    coll = np.asarray([r for a, b in COLLIDING_PAIRS for r in (a, b, a, b)],
-                      dtype=np.int32)
-    add_flags("32-bit collisions", _hash_sorted(coll))
-    for spec in radix_specs(n_main, ks, path_shapes, seed + 1):
+                        lambda t=t: hash_neighbor_flags_kernel(t),
+                        lambda t=t: hash_neighbor_flags_ref(t)))
+    for spec in radix:
         t = dev(spec.data)
         x = offset_view(t) if spec.offset else t
         c = torch.tensor(spec.count, dtype=torch.int32, device=device)

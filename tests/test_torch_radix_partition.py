@@ -130,11 +130,13 @@ def _same(got, want):
 
 SPECS = {s.label: s for s in selfcheck.radix_specs(
     1500, ks=(1, 2, 5, 10), path_shapes=[(2048, 5), (3000, 1)])}
-#: one K per n_main family for the Pallas kernel (interpret mode costs
-#: seconds per call); 1024 buckets are held against the JAX oracle, as the
-#: Pallas kernel's interpret-mode compile takes minutes there
+#: the n_main families at K = 2, 5 (the main path's width) and 10 for the
+#: Pallas kernel (interpret mode costs seconds per call; K = 1 meets the
+#: plain version and the JAX oracle only); 1024 buckets are held against
+#: the JAX oracle, as the Pallas kernel's interpret-mode compile takes
+#: minutes there
 PALLAS_SPECS = {s.label: s for s in selfcheck.radix_specs(
-    1500, ks=(2, 10), path_shapes=[(2048, 5)]) if s.n_buckets <= 64}
+    1500, ks=(2, 5, 10), path_shapes=[(2048, 5)]) if s.n_buckets <= 64}
 ORACLE_SPECS = [lb for lb, s in SPECS.items() if s.n_buckets > 64]
 
 
