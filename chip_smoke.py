@@ -25,6 +25,24 @@ no result):
    merge) must equal the CPU hash path's, so a wrong kernel flag cannot
    hide behind a fallback whose output is identical. Every kernel's
    launch count must have risen during the card's run.
+2b. The paper's experiment (Rules 1–3, then semantification, against the
+   T-framework), on the card with ``dedup="hash"``: group B at 1,000,000
+   rows per source in the paper's three scenarios
+   (``PaperConfig.group_b_scenarios``: no source, one source, both sources
+   pre-deduplicated; scenario (a) is phase 2's DIS) and group A at
+   200,000 (phase 2's DIS), each through ``apply_mapsdi`` (group B (a)
+   and group A also ``apply_mapsdi_eager``), then, under both engines,
+   through a ``KGEngine`` over each transformed DIS and through the
+   T-framework (``make_t_framework_fn`` over the untransformed DIS), cold
+   and then warm. The T-framework's KG must equal every MapSDI KG as a
+   row set (the paper's Q1); every transformed source (names, attrs,
+   codes), every ``TransformStats`` and every KG (codes and raw count)
+   must equal the port's CPU run of the same calls through the kernels'
+   plain versions at the same sizes; the three δ kernels must each
+   launch in the card's runs. Prints the transform seconds, the warm
+   semantify seconds of each framework and their ratio, raw and KG
+   triples, and the rows before and after, beside the card's name and
+   power limit.
 3. Every kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer code), at N = 2**20 rows for K = 1, 2, 5 and 10,
    at every (capacity, K) the main path handed the hash δ, and at the
@@ -279,12 +297,11 @@ def run_session(torch, dis, engine, dedup, device, deltas):
     return out
 
 
-def main_path_phase(torch, dev):
+def main_path_phase(torch, dev, workloads):
     """Returns the launch counts of the card's run and the (capacity, K)
     shapes it handed the hash δ."""
     import numpy as np
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    workloads = build_workloads()
     runs = []
     for name, dis, small, big in workloads:
         deltas = (encode(small, dis, dis.vocab), encode(big, dis, dis.vocab))
@@ -355,6 +372,154 @@ def main_path_phase(torch, dev):
     shapes = sorted(shapes, key=lambda s: (s[1], s[0]))
     log(f"hash δ shapes (capacity, K) on the main path: {shapes}")
     return launches, shapes
+
+
+# ---------------------------------------------------------------------------
+# phase 2b
+# ---------------------------------------------------------------------------
+
+ENGINES = ("rmlmapper", "sdm")
+
+
+def on_device(dis, dev):
+    """A copy of ``dis`` whose sources live on ``dev``."""
+    out = dis.copy()
+    out.sources = {name: t.to(dev) for name, t in dis.sources.items()}
+    return out
+
+
+def timed(torch, dev, fn):
+    """``fn()`` and its seconds on the host clock, ending in a device
+    sync."""
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def paper_runs(torch, dis, dev, eager: bool, warm: bool):
+    """One DIS through the paper's experiment on ``dev``: ``apply_mapsdi``
+    (and ``apply_mapsdi_eager``), then per engine a ``KGEngine`` over each
+    transformed DIS and the T-framework, each run cold and, if ``warm``,
+    again (the CPU's runs are references, not timings)."""
+    import dataclasses
+
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.core import (apply_mapsdi, apply_mapsdi_eager,
+                                  make_t_framework_fn)
+    from repro_torch.relalg import host_int
+    dis = on_device(dis, dev)
+    transforms = {"apply_mapsdi": apply_mapsdi}
+    if eager:
+        transforms["apply_mapsdi_eager"] = apply_mapsdi_eager
+    out = {"transforms": {}, "kgs": {}}
+    dises = {}
+    for name, transform in transforms.items():
+        (dis2, stats), secs = timed(torch, dev,
+                                    lambda: transform(dis, dedup="hash"))
+        dises[name] = dis2
+        out["transforms"][name] = {
+            "seconds": secs, "stats": dataclasses.asdict(stats),
+            "sources": {n: (t.attrs, t.to_codes())
+                        for n, t in dis2.sources.items()}}
+
+    def record(run):
+        (kg, raw), cold = timed(torch, dev, run)
+        warm_s = None
+        if warm:
+            (kg, raw), warm_s = timed(torch, dev, run)
+        return {"codes": kg.to_codes(), "raw": host_int(raw),
+                "cold": cold, "warm": warm_s}
+
+    for engine in ENGINES:
+        tf = make_t_framework_fn(dis, engine, "hash")
+        out["kgs"][engine, "t-framework"] = record(tf)
+        for name, dis2 in dises.items():
+            clear_plan_cache()
+            eng = KGEngine(dis2, config=EngineConfig(engine=engine,
+                                                     dedup="hash"),
+                           device=dev)
+            out["kgs"][engine, name] = record(eng.run)
+    return out
+
+
+def paper_phase(torch, dev, card, workloads):
+    """Group B's three scenarios at GROUP_B_ROWS and group A at
+    GROUP_A_ROWS on the card, each against the same calls on the CPU."""
+    import numpy as np
+    from repro_torch.configs.mapsdi_paper import CONFIG
+    from repro_torch.data.synthetic import make_group_b_dis
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    base = {name: dis for name, dis, _small, _big in workloads}
+    cases = []
+    for tag, (left, right) in zip("abc", CONFIG.group_b_scenarios):
+        if not (left or right):
+            dis = base[f"group_b_{GROUP_B_ROWS}"]
+        else:
+            t0 = time.perf_counter()
+            dis = make_group_b_dis(GROUP_B_ROWS, 0.75, seed=0,
+                                   dedup_left=left, dedup_right=right,
+                                   device="cpu")
+            log(f"workload group_b ({tag}) {GROUP_B_ROWS} rows/source "
+                f"built in {time.perf_counter() - t0:.1f} s")
+        cases.append((f"group_b ({tag})", dis, tag == "a"))
+    cases.append(("group_a", base[f"group_a_{GROUP_A_ROWS}"], True))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for label, dis, eager in cases:
+        gpu, gpu_s = timed(torch, dev,
+                           lambda: paper_runs(torch, dis, dev, eager, True))
+        cpu, cpu_s = timed(torch, dev, lambda: paper_runs(
+            torch, dis, torch.device("cpu"), eager, False))
+        log(f"paper {label:13s} runs took {gpu_s:.1f} s on the card, "
+            f"{cpu_s:.1f} s on the CPU")
+        for name, g in gpu["transforms"].items():
+            c = cpu["transforms"][name]
+            check(g["stats"] == c["stats"],
+                  f"{label} {name}: TransformStats {g['stats']} differ "
+                  f"from the CPU's {c['stats']}")
+            check(list(g["sources"]) == list(c["sources"]) and all(
+                ga == ca and np.array_equal(gc, cc)
+                for (ga, gc), (ca, cc) in zip(g["sources"].values(),
+                                              c["sources"].values())),
+                  f"{label} {name}: a transformed source differs from the "
+                  "CPU's")
+            st = g["stats"]
+            log(f"paper {label:13s} {name:18s} {g['seconds']:8.3f} s  "
+                f"rows before {st['source_rows_before']} after "
+                f"{st['source_rows_after']}  rules 1/2/3 "
+                f"{st['rule1_applications']}/{st['rule2_applications']}"
+                f"/{st['rule3_merges']}  == cpu  ({card})")
+        for (engine, framework), g in gpu["kgs"].items():
+            c = cpu["kgs"][engine, framework]
+            where = f"{label} {engine} {framework}"
+            check(g["codes"].ndim == 2 and g["codes"].shape[1] == 5 and
+                  len(g["codes"]) > 0, f"{where}: bad KG shape")
+            check(np.array_equal(g["codes"], c["codes"]) and
+                  g["raw"] == c["raw"],
+                  f"{where}: KG or raw count differs from the CPU's")
+        for engine in ENGINES:
+            t = gpu["kgs"][engine, "t-framework"]
+            t_rows = {tuple(r) for r in t["codes"].tolist()}
+            for name in gpu["transforms"]:
+                m = gpu["kgs"][engine, name]
+                check({tuple(r) for r in m["codes"].tolist()} == t_rows,
+                      f"{label} {engine} {name}: the MapSDI KG differs "
+                      "from the T-framework's (Q1)")
+                log(f"paper {label:13s} {engine:9s} {name:18s} semantify "
+                    f"warm {m['warm']:.4f} s (cold {m['cold']:.4f})  "
+                    f"T-framework warm {t['warm']:.4f} s (cold "
+                    f"{t['cold']:.4f})  T-framework / MapSDI "
+                    f"{t['warm'] / m['warm']:.2f}"
+                    f"  raw {m['raw']} vs {t['raw']}  KG {len(m['codes'])}"
+                    f"  Q1 holds, == cpu  ({card})")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log(f"paper experiment launches: {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in INT_KERNELS),
+          f"a δ kernel was not launched in the paper experiment: {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -1039,7 +1204,10 @@ def main() -> int:
         _lib.lib()
         log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
             f"(nvcc {_lib.last_build_seconds:.2f} s)")
-        launches, path_shapes = main_path_phase(torch, dev)
+        workloads = build_workloads()
+        launches, path_shapes = main_path_phase(torch, dev, workloads)
+        paper_phase(torch, dev, card, workloads)
+        del workloads
         errs, bad, times, (n_rep, k_rep) = kernel_phase(torch, dev,
                                                         path_shapes)
         # float32 products in full float32 (the plain versions' matmuls)

@@ -39,6 +39,7 @@ from repro_torch.core.transform import TransformStats, plan_mapsdi
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.plan.annotate import annotate
 from repro_torch.plan.compile import compile_plan, input_names
+from repro_torch.plan.explain import dump_plan
 from repro_torch.plan.ir import fingerprint
 from repro_torch.plan.lower import LogicalPlan, lower
 from repro_torch.relalg import Table, append_rows, bucket_cap, host_int
@@ -142,6 +143,37 @@ class KGEngine:
         self._last: Dict[str, object] = {}
 
     # -- plan cache ----------------------------------------------------------
+    @property
+    def plan(self) -> LogicalPlan:
+        """The optimized :class:`~repro_torch.plan.lower.LogicalPlan`."""
+        return self._plan
+
+    @property
+    def plan_signature(self) -> Tuple:
+        """The session's *shape*: structural IR fingerprint × emitter
+        dictionary codes × static config signature — every plan-cache key
+        component except the (data-dependent) source capacity buckets. Two
+        sessions with equal signatures share built closures
+        bucket-for-bucket."""
+        return (self._ir_fp, self._emit_sig) + self.config.cache_sig()
+
+    @property
+    def builds(self) -> int:
+        """Closures built *by this session* (plan-cache hits excluded)."""
+        return self._builds
+
+    @property
+    def recompiles(self) -> int:
+        """Builds beyond the session's first (capacity-bucket crossings,
+        overflow rebuilds)."""
+        return self._recompiles
+
+    def explain(self) -> str:
+        """Annotated plan tree over the session's current sources (exact
+        host-side annotation, one device)."""
+        counts, caps = annotate(self._plan)
+        return dump_plan(self._plan, self.engine, counts, caps)
+
     def _source_sig(self, sources: Mapping[str, Table]) -> Tuple:
         return tuple(sorted(
             (name, t.capacity, tuple(t.attrs), bucket_cap(host_int(t.count)))

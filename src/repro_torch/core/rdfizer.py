@@ -255,3 +255,49 @@ class RDFizer:
                                           dedup=self.dedup, caps=caps)
         sources = self.dis.sources if sources is None else sources
         return self._compiled(sources)
+
+
+def rdfize(dis: DIS, engine: Engine = "rmlmapper",
+           dedup: Optional[str] = None) -> Tuple[Table, int]:
+    """DEPRECATED eager wrapper: ``RDFize(DIS)`` -> (KG, raw count).
+
+    .. deprecated:: removal target — goes away together with the
+       ``repro_torch.core.pipeline`` shims (``make_planned_fn``,
+       ``make_mapsdi_fn``).
+
+    Delegates to a :class:`repro_torch.api.KGEngine` session with
+    ``optimize=False`` (blind evaluation of the un-rewritten rules — the
+    semantics ``raw`` has always measured) on the DIS's device, so
+    repeated rdfize calls over structurally-identical DISes share one
+    cached closure. Use ``KGEngine(dis, config=EngineConfig(engine=...,
+    dedup=..., optimize=False))`` directly for session state (ingestion,
+    stats)."""
+    from repro_torch.api import EngineConfig, KGEngine
+    from .pipeline import _warn_once
+    _warn_once("rdfize",
+               "KGEngine(dis, config=EngineConfig(optimize=False)).run()")
+    config = EngineConfig(engine=engine, dedup=dedup, optimize=False)
+    kg, raw = KGEngine(dis, config=config, device=dis.device).run()
+    return kg, host_int(raw)
+
+
+# -- host-side sink (strings only at the edge) -------------------------------
+
+def triples_to_ntriples(kg: Table, dis: DIS) -> List[str]:
+    """Decode device triples to N-Triples-ish text lines (host sink)."""
+    inv_tmpl = {v: k for k, v in dis.templates.items()}
+    out = []
+    for s_t, s_v, p, o_t, o_v in kg.to_codes():
+        out.append(f"{_term(inv_tmpl, dis, s_t, s_v)} "
+                   f"<{dis.vocab.decode(p)}> "
+                   f"{_term(inv_tmpl, dis, o_t, o_v)} .")
+    return out
+
+
+def _term(inv_tmpl, dis: DIS, t: int, v: int) -> str:
+    val = dis.vocab.decode(v)
+    if t == TMPL_LITERAL:
+        return f'"{val}"'
+    if t == TMPL_CONSTANT:
+        return f"<{val}>"
+    return f"<{inv_tmpl[int(t)].format(val)}>"

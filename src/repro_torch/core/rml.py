@@ -1,4 +1,4 @@
-"""Parser for the RML subset MapSDI consumes.
+"""Parser/serializer for the RML subset MapSDI consumes.
 
 The JSON form mirrors RML structure (rml:logicalSource, rr:subjectMap with
 rr:template + rr:class, rr:predicateObjectMap with rml:reference /
@@ -24,8 +24,9 @@ rr:parentTriplesMap), e.g.::
 """
 from __future__ import annotations
 
+import json
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Sequence
 
 from repro_torch.device import DeviceLike
 from repro_torch.relalg import Table, Vocab
@@ -102,6 +103,11 @@ def parse_dis(obj: Mapping, vocab: Optional[Vocab] = None,
     return dis
 
 
+def load_dis(path: str, **kw) -> DIS:
+    with open(path) as f:
+        return parse_dis(json.load(f), **kw)
+
+
 def register_constants(dis: DIS) -> None:
     """Pre-register templates and σ comparison codes deterministically,
     in map order."""
@@ -115,3 +121,38 @@ def register_constants(dis: DIS) -> None:
         for sel in m.selections:
             if sel.op in ("eq", "neq"):
                 vocab.intern(sel.value)
+
+
+# -- serialization (triple maps only; sources are data) ----------------------
+
+def term_map_to_json(t: TermMap) -> Dict:
+    if t.kind == "reference":
+        return {"reference": t.attr}
+    if t.kind == "template":
+        return {"template": t.template.replace("{}", "{" + t.attr + "}")}
+    return {"constant": t.constant}
+
+
+def triple_map_to_json(m: TripleMap) -> Dict:
+    subj = term_map_to_json(m.subject)
+    if m.subject_class:
+        subj["class"] = m.subject_class
+    poms: List[Dict] = []
+    for p in m.poms:
+        if isinstance(p.object, RefObjectMap):
+            obj = {"parentTriplesMap": p.object.parent_map,
+                   "joinCondition": {"child": p.object.child_attr,
+                                     "parent": p.object.parent_attr}}
+        else:
+            obj = term_map_to_json(p.object)
+        poms.append({"predicate": p.predicate, "object": obj})
+    out = {"name": m.name, "source": m.source, "subject": subj, "poms": poms}
+    if m.selections:
+        out["selections"] = [
+            {"attr": s.attr, "notnull": True} if s.op == "notnull"
+            else {"attr": s.attr, s.op: s.value} for s in m.selections]
+    return out
+
+
+def dump_maps(maps: Sequence[TripleMap]) -> str:
+    return json.dumps([triple_map_to_json(m) for m in maps], indent=2)

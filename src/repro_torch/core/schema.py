@@ -165,6 +165,16 @@ class DIS:
     def map_by_name(self, name: str) -> TripleMap:
         return map_by_name(self.maps, name)
 
+    @property
+    def device(self):
+        """The device the sources' extensions live on (None for a DIS
+        without sources): the port's entry points over a DIS run there."""
+        devices = {t.device for t in self.sources.values()}
+        if len(devices) > 1:
+            raise ValueError(f"the DIS's sources lie on several devices: "
+                             f"{sorted(map(str, devices))}")
+        return next(iter(devices), None)
+
     # -- unified schema O ---------------------------------------------------
     def classes(self) -> List[str]:
         return sorted({m.subject_class for m in self.maps if m.subject_class})

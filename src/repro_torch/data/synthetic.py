@@ -243,3 +243,25 @@ def make_group_b_extension_records(n_rows: int, seed: int = 0,
              "Sample": f"S{rng.integers(0, 10**6):06d}"}
             for i, g in enumerate(genes_r)]
     return out
+
+
+def make_motivating_dis(n_rows: int = 2000, overlap: float = 0.9,
+                        seed: int = 0, *, device: DeviceLike = None) -> DIS:
+    """Fig. 1: three sources (mutations / downstream genes / drug
+    resistances) that overlap heavily in the transcript they mention; blind
+    semantification explodes into duplicates."""
+    rng = np.random.default_rng(seed)
+    n_shared = max(1, int(round(n_rows * 0.02)))
+    pool = _entity_pool(rng, n_shared, "ENST")
+    sources, maps = {}, []
+    for si, attr in enumerate(["enst", "downstream_gene", "transcript_id"]):
+        vals = pool[rng.integers(0, n_shared, size=n_rows)]
+        recs = [{"ID": int(i), attr: str(vals[i]),
+                 "extra": int(rng.integers(0, 10))} for i in range(n_rows)]
+        sources[f"s{si}"] = {"attrs": ["ID", attr, "extra"], "records": recs}
+        maps.append({
+            "name": f"TM{si}", "source": f"s{si}",
+            "subject": {"template": "http://project-iasis.eu/Transcript/{%s}" % attr,
+                        "class": "iasis:Transcript"},
+            "poms": []})
+    return parse_dis({"sources": sources, "maps": maps}, device=device)

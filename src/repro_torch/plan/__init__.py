@@ -4,7 +4,8 @@
 1–3 plus selection pushdown and common-subplan elimination as symbolic
 rewrites (zero device work), ``annotate`` sizes every buffer at plan time,
 and ``compile_plan`` lowers the optimized DAG to one ``sources -> (KG,
-raw)`` closure.
+raw)`` closure; ``materialize_plan`` evaluates its relation inputs into
+a concrete ``DIS'`` and ``explain`` prints the annotated DAG.
 """
 from .ir import (Distinct, EmitTriples, EquiJoin, Node, Pred, Project,
                  Scan, Select, Union, fingerprint, intern, iter_nodes,
@@ -13,13 +14,16 @@ from .lower import LogicalPlan, lower, selection_preds
 from .optimize import (PlanStats, cse, merge_maps, optimize,
                        push_projections, push_selections)
 from .annotate import annotate, join_match_total
-from .compile import compile_plan, execute_node, input_names
+from .compile import (compile_plan, execute_node, input_names,
+                      materialize_plan)
+from .explain import dump_plan, explain
 
 __all__ = [
     "Distinct", "EmitTriples", "EquiJoin", "LogicalPlan", "Node",
     "PlanStats", "Pred", "Project", "Scan", "Select", "Union", "annotate",
-    "compile_plan", "cse", "execute_node", "fingerprint", "input_names",
-    "intern", "iter_nodes", "join_match_total", "lower", "make_select",
+    "compile_plan", "cse", "dump_plan", "execute_node", "explain",
+    "fingerprint", "input_names", "intern", "iter_nodes",
+    "join_match_total", "lower", "make_select", "materialize_plan",
     "merge_maps", "optimize", "push_projections", "push_selections",
     "selection_preds", "tree_size",
 ]

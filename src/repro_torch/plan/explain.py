@@ -1,0 +1,150 @@
+"""``dump_plan`` / ``explain`` — human-readable plan trees.
+
+Renders the full DAG (sink δ → ∪ → per-map emits → joins → relation
+chains) as an indented text tree with per-node capacity/row annotations
+from the annotation pass. Shared subtrees (CSE hits, join parents) print
+once and show up as ``(shared #k)`` references afterwards, making the
+common-subplan elimination visible.
+
+The port plans on one device: the mesh annotations (``n_shards``,
+``exchanges``) wait for the multi-GPU slice and the static verifier's
+(``schemas``, ``verdict``) for the static-verification slice (ROADMAP.md
+Queue 1 items 4 and 3); passing them raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Mapping, Optional
+
+from .annotate import annotate
+from .ir import (Distinct, EmitTriples, EquiJoin, Node, Project, Scan,
+                 Select, Union)
+from .lower import LogicalPlan
+
+
+def _not_ported(what: str, item: int, slice_name: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported yet: it belongs to the port's {slice_name} "
+        f"slice (ROADMAP.md Queue 1 item {item})")
+
+
+def _label(node: Node) -> str:
+    if isinstance(node, Scan):
+        return f"scan {node.source}({', '.join(node.attrs)})"
+    if isinstance(node, Project):
+        cols = ", ".join(s if s == d else f"{s}→{d}" for s, d in node.spec)
+        return f"π [{cols}]"
+    if isinstance(node, Select):
+        return "σ [" + " ∧ ".join(p.describe() for p in node.preds) + "]"
+    if isinstance(node, Distinct):
+        return "δ"
+    if isinstance(node, Union):
+        return f"∪ ({len(node.inputs)} inputs)"
+    if isinstance(node, EquiJoin):
+        return f"⋈ {node.left_key}={node.right_key}"
+    if isinstance(node, EmitTriples):
+        n_joins = len(node.joins)
+        extra = f", {n_joins} join{'s' if n_joins != 1 else ''}" \
+            if n_joins else ""
+        return f"emit[{node.tm.name}] ({len(node.tm.poms)} poms{extra})"
+    return type(node).__name__
+
+
+def _fmt_bytes(n: int) -> str:
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if n < 1024 or unit == "GiB":
+            return f"{n:.1f}{unit}" if unit != "B" else f"{int(n)}B"
+        n /= 1024
+    return f"{n:.1f}GiB"  # pragma: no cover - unreachable
+
+
+def dump_plan(plan: LogicalPlan, engine: str = "rmlmapper",
+              counts: Optional[Mapping[Node, int]] = None,
+              caps: Optional[Mapping[Node, int]] = None,
+              exchanges: Optional[Mapping[Node, object]] = None,
+              schemas: Optional[Mapping[Node, object]] = None,
+              verdict: Optional[str] = None) -> str:
+    """Text tree of the whole plan DAG with per-node annotations
+    (``rows=`` from ``counts``, ``cap=`` from ``caps``)."""
+    return dump_root(plan.sink(engine), counts=counts, caps=caps,
+                     exchanges=exchanges, schemas=schemas, verdict=verdict)
+
+
+def dump_root(root: Node,
+              counts: Optional[Mapping[Node, int]] = None,
+              caps: Optional[Mapping[Node, int]] = None,
+              exchanges: Optional[Mapping[Node, object]] = None,
+              schemas: Optional[Mapping[Node, object]] = None,
+              verdict: Optional[str] = None) -> str:
+    """Root-generic body of :func:`dump_plan` — renders any IR DAG from
+    its root node."""
+    if exchanges is not None:
+        _not_ported("exchanges (a mesh plan's ⋈ decisions)", 4, "multi-GPU")
+    if schemas is not None or verdict is not None:
+        _not_ported("schemas/verdict (the static verifier's report)", 3,
+                    "static-verification")
+    counts = counts or {}
+    caps = caps or {}
+    shared_ids: Dict[int, int] = {}
+    seen_multi = _multi_referenced(root)
+    lines: List[str] = []
+
+    def annot(node: Node) -> str:
+        bits = []
+        if node in counts:
+            bits.append(f"rows={counts[node]}")
+        if node in caps:
+            bits.append(f"cap={caps[node]}")
+        return ("  [" + ", ".join(bits) + "]") if bits else ""
+
+    def render(node: Node, prefix: str, is_last: bool, is_root: bool):
+        branch = "" if is_root else ("└─ " if is_last else "├─ ")
+        if id(node) in shared_ids:
+            lines.append(f"{prefix}{branch}{_label(node)} "
+                         f"(shared #{shared_ids[id(node)]})")
+            return
+        ref = ""
+        if id(node) in seen_multi:
+            shared_ids[id(node)] = len(shared_ids) + 1
+            ref = f"  (#{shared_ids[id(node)]})"
+        lines.append(f"{prefix}{branch}{_label(node)}{annot(node)}{ref}")
+        kids = node.children()
+        child_prefix = prefix if is_root else \
+            prefix + ("   " if is_last else "│  ")
+        for i, child in enumerate(kids):
+            render(child, child_prefix, i == len(kids) - 1, False)
+
+    render(root, "", True, True)
+    return "\n".join(lines)
+
+
+def _multi_referenced(root: Node) -> Dict[int, int]:
+    # count references (not visits): a node with >1 incoming edge is shared
+    refs: Dict[int, int] = {}
+    stack: List[Node] = [root]
+    visited = set()
+    while stack:
+        n = stack.pop()
+        if id(n) in visited:
+            continue
+        visited.add(id(n))
+        for c in n.children():
+            refs[id(c)] = refs.get(id(c), 0) + 1
+            stack.append(c)
+    return {i: k for i, k in refs.items() if k > 1}
+
+
+def explain(plan: LogicalPlan, engine: str = "rmlmapper",
+            with_annotations: bool = True, n_shards: Optional[int] = None,
+            join_exchange: str = "auto", calibration=None) -> str:
+    """Convenience: annotate (host-side, exact) and dump the plan.
+
+    ``n_shards`` (a shard-local annotation with each ⋈'s exchange
+    decision under ``join_exchange`` and ``calibration``) is the mesh
+    form; it raises ``NotImplementedError`` until the multi-GPU slice."""
+    if n_shards is not None:
+        _not_ported("explain(n_shards=...) (the mesh plan)", 4, "multi-GPU")
+    if not with_annotations:
+        return dump_plan(plan, engine)
+    counts, caps = annotate(plan)
+    return dump_plan(plan, engine, counts, caps)

@@ -38,12 +38,19 @@ def bucket_cap(n: int, mult: int = 8, growth: float = 2.0) -> int:
     return cap
 
 
-def shrink_to_fit(table: "Table", mult: int = 8) -> "Table":
-    """Materialize a table at capacity == round_cap(count) (host sync)."""
-    n = host_int(table.count)
+def shrink_to_fit(table: "Table", mult: int = 8, *,
+                  count: int | None = None) -> "Table":
+    """Materialize a table at capacity == round_cap(count). One host sync,
+    the count (none when the caller passes the ``count`` it has read); the
+    rows are copied on the table's device."""
+    n = host_int(table.count) if count is None else count
     cap = round_cap(n, mult)
-    data = host_get(table.data)[:n]
-    return Table.from_codes(data, table.attrs, cap, device=table.device)
+    data = torch.full((cap, table.n_attrs), PAD_ID, dtype=torch.int32,
+                      device=table.device)
+    data[:n] = table.data[:n]
+    return Table(data=data, count=torch.tensor(n, dtype=torch.int32,
+                                               device=table.device),
+                 attrs=table.attrs)
 
 
 def pad_rows(data: torch.Tensor, capacity: int) -> torch.Tensor:
