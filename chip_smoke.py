@@ -43,6 +43,23 @@ no result):
    semantify seconds of each framework and their ratio, raw and KG
    triples, and the rows before and after, beside the card's name and
    power limit.
+2c. BGP queries over the session KG (``KGEngine.query``), on the card
+   with ``dedup="hash"``: phase 2's DISes (group B's KG has 70 triples,
+   group A's 49,999), one session per DIS and engine, ``create_kg``, then
+   a full scan, the two-hop join, a predicate ``eq`` filter projected to
+   ``?s``, a term ``neq`` filter, a repeated variable (``?x ?p ?x``) and
+   an all-constant query that hits a KG row and one that misses, each
+   cold and then cached; then phase 2's in-bucket ingest and the full
+   scan again, then its crossing ingest and the full scan again. Every
+   answer must equal the port's CPU run of the same steps bit for bit
+   (row order included) and a numpy oracle over the KG's codes as a row
+   set; each cached repeat must be a plan-cache hit with 0 query
+   recompiles, making one host read for its overflow flag plus one per
+   hash δ call; host reads, hash δ calls and fallbacks must equal the
+   CPU run's; the three δ kernels must each launch. Prints per query the
+   cold and cached seconds, the steady-state queries/s (median of 10
+   cached calls, each ending in a device sync), the answers, host reads
+   and hash δ calls, beside the card's name and power limit.
 3. Every kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer code), at N = 2**20 rows for K = 1, 2, 5 and 10,
    at every (capacity, K) the main path handed the hash δ, and at the
@@ -520,6 +537,261 @@ def paper_phase(torch, dev, card, workloads):
     log(f"paper experiment launches: {json.dumps(launches)}")
     check(all(launches[k] > 0 for k in INT_KERNELS),
           f"a δ kernel was not launched in the paper experiment: {launches}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2c
+# ---------------------------------------------------------------------------
+
+#: cached calls per query whose median gives the steady-state rate
+QUERY_STEADY_CALLS = 10
+QUERY_INGESTS = ("ingest in bucket", "ingest crossing")
+
+
+def smoke_queries(codes):
+    """The phase's BGP queries, built from the card's KG codes: a full
+    scan, the two-hop join, a predicate ``eq`` filter projected to ``?s``,
+    a term ``neq`` filter (the lowering's ∪ branch), a repeated variable
+    (``ColEq``), and all-constant existence queries that hit a KG row and
+    that miss (a predicate code past the vocabulary)."""
+    from repro_torch.api import Query, QueryFilter, TriplePattern as P
+    row = codes[len(codes) // 2]
+    s0, p0 = (int(row[0]), int(row[1])), int(row[2])
+    o0 = (int(row[3]), int(row[4]))
+    spo = P("?s", "?p", "?o")
+    return {
+        "scan_1pat": Query(patterns=[spo]),
+        "join_2hop": Query(patterns=[spo, P("?o", "?p2", "?o2")]),
+        "pred_eq_project": Query(patterns=[spo],
+                                 filters=[QueryFilter("?p", "eq", p0)],
+                                 project=("?s",)),
+        "term_neq": Query(patterns=[spo],
+                          filters=[QueryFilter("?o", "neq", o0)]),
+        "repeated_var": Query(patterns=[P("?x", "?p", "?x")]),
+        "exists_hit": Query(patterns=[P(s0, p0, o0)]),
+        "exists_miss": Query(patterns=[P(s0, 2**30, o0)]),
+    }
+
+
+def _np_join(left, right):
+    """Natural join of two binding relations ``{var: [n, width] codes}``
+    on every shared variable (numpy only: dense key ids, a stable sort of
+    the right side and a range per left row)."""
+    import numpy as np
+    shared = sorted(set(left) & set(right))
+    lk = np.concatenate([left[n] for n in shared], axis=1)
+    rk = np.concatenate([right[n] for n in shared], axis=1)
+    if not len(lk) or not len(rk):
+        li = ri = np.zeros(0, dtype=np.int64)
+    else:
+        _, ids = np.unique(np.concatenate([lk, rk]), axis=0,
+                           return_inverse=True)
+        ids = ids.reshape(-1)
+        lid, rid = ids[:len(lk)], ids[len(lk):]
+        order = np.argsort(rid, kind="stable")
+        lo = np.searchsorted(rid[order], lid, side="left")
+        hi = np.searchsorted(rid[order], lid, side="right")
+        n = hi - lo
+        li = np.repeat(np.arange(len(lid)), n)
+        within = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+        ri = order[np.repeat(lo, n) + within]
+    out = {name: a[li] for name, a in left.items()}
+    out.update({name: a[ri] for name, a in right.items() if name not in out})
+    return out
+
+
+def bgp_oracle(codes, q):
+    """The BGP's answer over the KG's codes as a sorted set of rows,
+    computed with numpy alone: per pattern the rows that match its
+    constants and repeated variables, natural joins on shared variables,
+    the filters, then the projection."""
+    import numpy as np
+    pos_cols = {"s": (0, 1), "p": (2,), "o": (3, 4)}
+    rel = None
+    for pat in q.patterns:
+        keep = np.ones(len(codes), dtype=bool)
+        first = {}
+        for pos, term in (("s", pat.s), ("p", pat.p), ("o", pat.o)):
+            cols = pos_cols[pos]
+            if isinstance(term, str):
+                if term[1:] in first:
+                    for a, b in zip(first[term[1:]], cols):
+                        keep &= codes[:, a] == codes[:, b]
+                else:
+                    first[term[1:]] = cols
+            else:
+                const = (term,) if pos == "p" else term
+                for c, v in zip(cols, const):
+                    keep &= codes[:, c] == v
+        rows = codes[keep]
+        if not first:           # all-constant: the matching triple rows
+            return np.unique(rows, axis=0) if len(rows) else rows
+        part = {name: rows[:, list(c)] for name, c in first.items()}
+        rel = part if rel is None else _np_join(rel, part)
+    for f in q.filters:
+        const = np.asarray((f.term,) if isinstance(f.term, int) else f.term)
+        eq = np.all(rel[f.var[1:]] == const, axis=1)
+        rel = {n: a[eq if f.op == "eq" else ~eq] for n, a in rel.items()}
+    out = np.concatenate([rel[n] for n in q.answer_vars()], axis=1)
+    return np.unique(out, axis=0) if len(out) else out
+
+
+def query_session(torch, dis, engine, dev, deltas, queries=None,
+                  steady=False):
+    """One session's query steps on ``dev``: ``create_kg``, every query
+    cold and then cached (with its counted host reads, hash δ calls and
+    fallbacks, plan-cache hit, query recompiles and the kernel launches
+    of that one call; ``steady`` adds the median of QUERY_STEADY_CALLS
+    more cached calls), then each ingest and ``scan_1pat`` over the new
+    KG. ``queries`` default to :func:`smoke_queries` over this session's
+    KG."""
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.relalg import count_transfers
+    from repro_torch.relalg.ops import (hash_dedup_counts,
+                                        reset_hash_dedup_counts)
+    clear_plan_cache()
+    eng = KGEngine(dis, config=EngineConfig(engine=engine, dedup="hash"),
+                   device=dev)
+    kg, _ = eng.create_kg()
+    out = {"kg": kg.to_codes(), "answers": {}, "ingests": {},
+           "kg_buffer": eng._kg_table(None).capacity}
+    if queries is None:
+        queries = smoke_queries(out["kg"])
+    out["queries"] = queries
+
+    def run(q):
+        before = eng.stats()["query"]["recompiles"]
+        reset_hash_dedup_counts()
+        reset_launch_counts()
+        with count_transfers() as ledger:
+            res, secs = timed(torch, dev, lambda: eng.query(q))
+        launches = launch_counts()
+        st = eng.stats()["query"]
+        return {"codes": res.to_codes(), "attrs": res.attrs,
+                "seconds": secs, "host_reads": ledger.device_to_host,
+                "dedup": hash_dedup_counts(), "hit": st["last_cache_hit"],
+                "recompiles": st["recompiles"] - before,
+                "launches": {k: launches[k] for k in INT_KERNELS}}
+
+    for name, q in queries.items():
+        rec = {"cold": run(q), "cached": run(q)}
+        if steady:
+            rec["steady_s"] = statistics.median(
+                timed(torch, dev, lambda: eng.query(q))[1]
+                for _ in range(QUERY_STEADY_CALLS))
+        out["answers"][name] = rec
+    for step, delta in zip(QUERY_INGESTS, deltas):
+        kg, _ = eng.ingest(delta)
+        check(eng._kg is kg, f"{step}: the session KG is not the ingest's")
+        out["ingests"][step] = dict(run(queries["scan_1pat"]),
+                                    kg=kg.to_codes())
+    return out
+
+
+def query_phase(torch, dev, card, workloads):
+    """Phase 2's DISes, each under both engines: the query steps on the
+    card against the same steps on the CPU and against the numpy oracle.
+    Launches are counted per query call, apart from KG creation and the
+    ingests: each call's δ kernels must match its hash δ calls, and the
+    three δ kernels must each launch in the queries' own calls."""
+    import numpy as np
+    runs = []
+    for name, dis, small, big in workloads:
+        deltas = (encode(small, dis, dis.vocab), encode(big, dis, dis.vocab))
+        for engine in ENGINES:
+            runs.append((name, dis, engine, deltas))
+
+    gpu = {(name, engine): query_session(torch, dis, engine, dev, deltas,
+                                         steady=True)
+           for name, dis, engine, deltas in runs}
+    launches = dict.fromkeys(INT_KERNELS, 0)
+    for g in gpu.values():
+        calls = [rec[run] for rec in g["answers"].values()
+                 for run in ("cold", "cached")] + list(g["ingests"].values())
+        for rec in calls:
+            n = rec["dedup"]["calls"]
+            want = {"rowhash": sum(n.values()),
+                    "hash_neighbor_flags": sum(n.values()),
+                    "radix_partition": sum(v for key, v in n.items()
+                                           if key[0] == "radix")}
+            check(rec["launches"] == want,
+                  f"a query's δ launches {rec['launches']} do not match its "
+                  f"hash δ calls {want}")
+            for k in INT_KERNELS:
+                launches[k] += rec["launches"][k]
+    log(f"query launches (query calls only, cold + cached + scans after "
+        f"the ingests): {json.dumps(launches)}")
+    check(all(launches[k] > 0 for k in INT_KERNELS),
+          f"a δ kernel was not launched by the queries: {launches}")
+
+    for name, dis, engine, deltas in runs:
+        g = gpu[name, engine]
+        c = query_session(torch, dis, engine, torch.device("cpu"), deltas,
+                          queries=g["queries"])
+        check(np.array_equal(g["kg"], c["kg"]) and
+              g["kg_buffer"] == c["kg_buffer"],
+              f"{name} {engine}: the session KG differs from the CPU's")
+        log(f"query {name:15s} {engine:9s} KG {len(g['kg'])} triples in a "
+            f"buffer of {g['kg_buffer']} rows, which every query scans")
+        for qname, q in g["queries"].items():
+            where = f"{name} {engine} {qname}"
+            want = bgp_oracle(g["kg"], q)
+            for run in ("cold", "cached"):
+                gr, cr = g["answers"][qname][run], c["answers"][qname][run]
+                got = gr["codes"]
+                check(got.ndim == 2 and got.shape[1] == len(q.answer_attrs())
+                      and tuple(gr["attrs"]) == q.answer_attrs(),
+                      f"{where} {run}: bad answer shape {got.shape}")
+                check(np.array_equal(got, cr["codes"]),
+                      f"{where} {run}: the answer differs from the CPU's")
+                uniq = np.unique(got, axis=0) if len(got) else got
+                check(len(uniq) == len(got) and np.array_equal(uniq, want),
+                      f"{where} {run}: the answer differs from the oracle's")
+                for key in ("host_reads", "dedup", "hit", "recompiles"):
+                    check(gr[key] == cr[key],
+                          f"{where} {run}: {key} {gr[key]} on the card, "
+                          f"{cr[key]} on the CPU")
+            cached = g["answers"][qname]["cached"]
+            calls = sum(cached["dedup"]["calls"].values())
+            check(cached["hit"] and cached["recompiles"] == 0,
+                  f"{where}: the cached repeat was not a plan-cache hit "
+                  "with 0 recompiles")
+            check(cached["host_reads"] == 1 + calls,
+                  f"{where}: the cached query made {cached['host_reads']} "
+                  f"host reads, expected 1 + {calls} hash δ calls")
+            cold = g["answers"][qname]["cold"]
+            steady = g["answers"][qname]["steady_s"]
+            log(f"query {name:15s} {engine:9s} {qname:15s} cold "
+                f"{cold['seconds']:.4f} s  cached {cached['seconds']:.4f} s"
+                f"  steady {1 / steady:9.1f} queries/s  answers "
+                f"{len(cached['codes'])}  host reads cold "
+                f"{cold['host_reads']} cached {cached['host_reads']}  "
+                f"hash δ calls {calls} fallbacks "
+                f"{json.dumps(cached['dedup']['fallbacks'])}  launches "
+                f"cold {json.dumps(cold['launches'])} cached "
+                f"{json.dumps(cached['launches'])}  == cpu, == oracle  "
+                f"({card})")
+        for step in QUERY_INGESTS:
+            gr, cr = g["ingests"][step], c["ingests"][step]
+            where = f"{name} {engine} {step}"
+            check(np.array_equal(gr["kg"], cr["kg"]),
+                  f"{where}: the KG differs from the CPU's")
+            check(np.array_equal(gr["codes"], cr["codes"]),
+                  f"{where}: scan_1pat differs from the CPU's")
+            want = bgp_oracle(gr["kg"], g["queries"]["scan_1pat"])
+            check(np.array_equal(np.unique(gr["codes"], axis=0), want),
+                  f"{where}: scan_1pat is not the new KG's")
+            for key in ("host_reads", "dedup", "hit", "recompiles"):
+                check(gr[key] == cr[key],
+                      f"{where}: {key} {gr[key]} on the card, {cr[key]} "
+                      "on the CPU")
+            log(f"query {name:15s} {engine:9s} {step:17s} scan_1pat "
+                f"{gr['seconds']:.4f} s  answers {len(gr['codes'])} (KG "
+                f"{len(gr['kg'])})  cache hit {gr['hit']}  query "
+                f"recompiles {gr['recompiles']}  host reads "
+                f"{gr['host_reads']}  launches "
+                f"{json.dumps(gr['launches'])}  == cpu, == oracle  ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -1207,6 +1479,7 @@ def main() -> int:
         workloads = build_workloads()
         launches, path_shapes = main_path_phase(torch, dev, workloads)
         paper_phase(torch, dev, card, workloads)
+        query_phase(torch, dev, card, workloads)
         del workloads
         errs, bad, times, (n_rep, k_rep) = kernel_phase(torch, dev,
                                                         path_shapes)

@@ -31,11 +31,12 @@ class CachedPlan:
     needs to report stats without re-planning."""
 
     key: Tuple
-    plan: object                 # repro_torch.plan.lower.LogicalPlan
-    emitter: object              # repro_torch.core.rdfizer.RDFizer
+    plan: object                 # LogicalPlan, or a query's QueryPlan
+    emitter: object              # RDFizer (None for a query entry)
     counts: Dict[Node, int]      # plan-time row counts (exact or bound)
     caps: Dict[Node, int]        # plan-time buffer capacities
-    fn: Callable                 # sources -> (kg, raw, overflowed)
+    fn: Callable                 # sources -> (kg, raw, overflowed), or
+    #                              (answer, overflowed) for a query
     engine: str
     dedup: Optional[str]
     mode: str

@@ -8,6 +8,13 @@ configuration component of the plan-cache key.
 Static verification (the reference's ``verify="plan"``/``"full"``) is not
 ported yet: ``verify`` defaults to ``"off"`` and the other two levels
 raise ``NotImplementedError``. The KG does not depend on the setting.
+
+``jit`` is the reference's switch between a jitted and an eager closure.
+The port's closures always run eagerly, so ``jit`` changes nothing in
+execution. It is accepted as the reference accepts it (which checks no
+value) and keyed in :meth:`EngineConfig.cache_sig`, so sessions that
+differ only in ``jit`` never share a cache entry — just as in the
+reference.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ class EngineConfig:
     optimize: bool = True
     mode: str = "exact"
     slack: float = 1.0
+    jit: bool = True
     verify: str = "off"
 
     def __post_init__(self):
@@ -64,5 +72,7 @@ class EngineConfig:
     def cache_sig(self) -> Tuple:
         """The static configuration component of the plan-cache key —
         every config field that changes the built program and is not
-        already covered by the IR fingerprint or the emitter signature."""
-        return (self.engine, self.dedup, self.mode, self.slack)
+        already covered by the IR fingerprint or the emitter signature
+        (``jit`` included, as in the reference, though it is a no-op
+        here)."""
+        return (self.engine, self.dedup, self.mode, self.slack, self.jit)

@@ -6,9 +6,10 @@ once, then semantify large and *growing* sources cheaply::
     engine = KGEngine(dis, config=EngineConfig(engine="sdm", dedup="hash"))
     kg, stats = engine.create_kg()           # plan + build (or cache hit)
     kg, stats = engine.ingest(delta_sources) # micro-batch extension
+    ans = engine.query(q)                    # BGP over the session KG
     engine.stats()                           # session counters
 
-Two mechanisms:
+Two mechanisms, shared by creation and queries:
 
 * **Plan cache** — built closures are keyed by the structural fingerprint
   of the optimized IR × the emitter's dictionary codes × engine × dedup ×
@@ -25,28 +26,65 @@ Two mechanisms:
 The session runs on the CUDA card unless ``device="cpu"`` is passed;
 without a card and without ``device="cpu"`` it raises
 :class:`repro_torch.device.NoCUDADeviceError`.
+
+The port runs one device and keeps no persistent plan store: the
+reference's ``mesh``/``mesh_axis``/``join_exchange``/``calibrate`` belong
+to the multi-GPU slice and ``plan_store`` to the plan-store slice
+(ROADMAP.md Queue 1 items 4 and 5).
 """
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
 from repro_torch.core.rdfizer import RDFizer
-from repro_torch.core.schema import DIS
+from repro_torch.core.schema import DIS, TRIPLE_ATTRS
 from repro_torch.core.transform import TransformStats, plan_mapsdi
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.plan.annotate import annotate
 from repro_torch.plan.compile import compile_plan, input_names
-from repro_torch.plan.explain import dump_plan
+from repro_torch.plan.explain import dump_plan, dump_root
 from repro_torch.plan.ir import fingerprint
 from repro_torch.plan.lower import LogicalPlan, lower
+from repro_torch.query import (KG_SOURCE, Query, annotate_query,
+                               compile_query, lower_query, query_session_key)
 from repro_torch.relalg import Table, append_rows, bucket_cap, host_int
 from repro_torch.relalg.table import pad_rows
 
 from .cache import PLAN_CACHE, CachedPlan
 from .config import EngineConfig
+
+#: sentinel distinguishing "kwarg not passed" from every real value — a
+#: bare ``KGEngine(dis)`` must not warn; an explicit legacy kwarg must
+_UNSET = object()
+_WARNED_LEGACY: set = set()
+
+#: the reference's keywords for the slices not ported yet, with the value
+#: that means "no mesh / no store" (accepted) and the ROADMAP.md Queue 1
+#: item that ports the rest
+_NOT_PORTED = {
+    "mesh": (None, 4, "multi-GPU"),
+    "mesh_axis": ("data", 4, "multi-GPU"),
+    "join_exchange": ("auto", 4, "multi-GPU"),
+    "calibrate": (False, 4, "multi-GPU"),
+    "plan_store": (None, 5, "plan-store"),
+}
+
+
+def _warn_legacy_kwargs(names: Tuple[str, ...]) -> None:
+    """One ``DeprecationWarning`` per distinct legacy-kwarg combination
+    per process — enough to steer migrations without drowning loops."""
+    if names in _WARNED_LEGACY:
+        return
+    _WARNED_LEGACY.add(names)
+    warnings.warn(
+        "KGEngine keyword configuration (" + ", ".join(names) + ") is "
+        "deprecated; pass config=EngineConfig(...) instead — the legacy "
+        "kwargs will be removed once out-of-tree callers have migrated",
+        DeprecationWarning, stacklevel=3)
 
 
 def _to_bucket(table: Table) -> Table:
@@ -92,19 +130,61 @@ class KGEngine:
         ``dedup`` (``"lex"`` | ``"hash"`` | None), ``optimize`` (run the
         Rule 1–3 + σ + CSE fixpoint), ``mode`` (``annotate`` mode,
         ``"exact"`` or ``"bound"``), ``slack`` (multiplier on annotated
-        counts before bucketing) and ``verify``.
+        counts before bucketing), ``jit`` (keyed, no-op in the eager port)
+        and ``verify``. The canonical spelling.
+    engine, dedup, optimize, mode, slack, jit, verify
+        The reference's keyword spelling of the same fields: deprecated
+        (one ``DeprecationWarning`` per combination per process), folded
+        into an ``EngineConfig``; passing them together with ``config``
+        raises ``ValueError``.
+    mesh, mesh_axis, join_exchange, calibrate, plan_store
+        The reference's multi-device and plan-store keywords. Their
+        single-device, storeless values (``None``, ``"data"``, ``"auto"``,
+        ``False``, ``None``) are accepted; any other value raises
+        ``NotImplementedError`` naming the ROADMAP.md item that ports it.
     device
         ``None`` (the default) runs on the CUDA card; ``"cpu"`` runs the
         plain PyTorch path on the CPU.
     """
 
-    def __init__(self, dis: DIS, config: Optional[EngineConfig] = None, *,
-                 device: DeviceLike = None):
-        if config is None:
-            config = EngineConfig()
-        if not isinstance(config, EngineConfig):
-            raise TypeError("config must be an EngineConfig, got "
-                            f"{type(config).__name__}")
+    def __init__(self, dis: DIS, engine: str = _UNSET,
+                 dedup: Optional[str] = _UNSET, *,
+                 config: Optional[EngineConfig] = None,
+                 device: DeviceLike = None,
+                 optimize: bool = _UNSET, mode: str = _UNSET,
+                 slack: float = _UNSET, jit: bool = _UNSET,
+                 verify: str = _UNSET, mesh=_UNSET, mesh_axis: str = _UNSET,
+                 join_exchange: str = _UNSET, plan_store=_UNSET,
+                 calibrate=_UNSET):
+        legacy = {name: value for name, value in (
+            ("engine", engine), ("dedup", dedup), ("optimize", optimize),
+            ("mode", mode), ("slack", slack), ("mesh", mesh),
+            ("mesh_axis", mesh_axis), ("jit", jit),
+            ("join_exchange", join_exchange), ("plan_store", plan_store),
+            ("calibrate", calibrate), ("verify", verify))
+            if value is not _UNSET}
+        if config is not None:
+            if legacy:
+                raise ValueError(
+                    "pass either config=EngineConfig(...) or the legacy "
+                    "keyword arguments, not both (got config plus "
+                    f"{sorted(legacy)})")
+            if not isinstance(config, EngineConfig):
+                raise TypeError("config must be an EngineConfig, got "
+                                f"{type(config).__name__}")
+        else:
+            names = tuple(sorted(legacy))
+            for name in sorted(set(legacy) & set(_NOT_PORTED)):
+                default, item, slice_name = _NOT_PORTED[name]
+                value = legacy.pop(name)
+                if value != default:
+                    raise NotImplementedError(
+                        f"KGEngine({name}={value!r}) is not ported yet: it "
+                        f"belongs to the port's {slice_name} slice "
+                        f"(ROADMAP.md Queue 1 item {item})")
+            if names:
+                _warn_legacy_kwargs(names)
+            config = EngineConfig(**legacy)   # validates every field
         self.config = config
         self.device: torch.device = resolve_device(device)
         self.engine, self.dedup = config.engine, config.dedup
@@ -141,6 +221,17 @@ class KGEngine:
         self._cache_hits = 0
         self._cache_misses = 0
         self._last: Dict[str, object] = {}
+        # query tier (KGEngine.query): the session KG the BGP engine reads,
+        # its capacity-bucketed view (identity-keyed — a new KG from
+        # run()/ingest() re-buckets), and the per-session query counters
+        # surfaced as ``stats()["query"]``
+        self._kg: Optional[Table] = None
+        self._kg_bucket: Optional[Tuple[Table, Table]] = None
+        self._q_executions = 0
+        self._q_cache_hits = 0
+        self._q_cache_misses = 0
+        self._q_recompiles = 0
+        self._q_last: Dict[str, object] = {}
 
     # -- plan cache ----------------------------------------------------------
     @property
@@ -267,7 +358,10 @@ class KGEngine:
         self._last = {"entry": entry, "cache_hit": hit, "first": first,
                       "plan_seconds": plan_s, "exec_seconds": exec_s,
                       "sources": sources}
+        self._kg = kg          # the device-resident KG the query tier reads
         return kg, raw
+
+    __call__ = run
 
     def create_kg(self) -> Tuple[Table, Dict[str, object]]:
         """Plan (or reuse) + execute; returns ``(KG, stats)`` with the
@@ -308,6 +402,108 @@ class KGEngine:
         self._ingests += 1
         kg, raw = self.run()
         return kg, self._run_stats(kg, raw)
+
+    # -- queries -------------------------------------------------------------
+    def _kg_table(self, kg: Optional[Table]) -> Table:
+        """Resolve + bucket the KG table a query reads: the session KG by
+        default (materialized on first use), an explicit ``kg=`` override
+        (moved to the session device) otherwise. The bucketed view is
+        cached on the KG object's identity, so repeated queries over one
+        KG share a buffer."""
+        if kg is None:
+            if self._kg is None:
+                self.run()          # materialize the session KG first
+            kg = self._kg
+        if tuple(kg.attrs) != TRIPLE_ATTRS:
+            raise ValueError("query target must be a coded KG table with "
+                             f"attrs {TRIPLE_ATTRS}, got {tuple(kg.attrs)}")
+        hit = self._kg_bucket
+        if hit is not None and hit[0] is kg:
+            return hit[1]
+        bucketed = _to_bucket(kg.to(self.device))
+        self._kg_bucket = (kg, bucketed)
+        return bucketed
+
+    def _query_key(self, query: Query, kg: Table) -> Tuple:
+        c = self.config
+        return query_session_key(query, dedup=c.dedup, mode=c.mode,
+                                 slack=c.slack, jit=c.jit,
+                                 kg_bucket_cap=kg.capacity, mesh_sig=None)
+
+    def _build_query(self, key: Tuple, qplan, kg: Table,
+                     mode: Optional[str] = None,
+                     floor_caps: Optional[Mapping] = None) -> CachedPlan:
+        """Query sibling of :meth:`_build`: annotate, then compile the
+        single-device closure."""
+        counts, caps = annotate_query(qplan, {KG_SOURCE: kg},
+                                      mode=mode or self.mode,
+                                      slack=self.slack, cap_fn=bucket_cap)
+        if floor_caps:  # growth must be monotone or overflow ping-pongs
+            caps = {n: max(c, floor_caps.get(n, 0)) for n, c in caps.items()}
+        fn = compile_query(qplan, dedup=self.dedup, caps=caps)
+        entry = CachedPlan(key=key, plan=qplan, emitter=None, counts=counts,
+                           caps=caps, fn=fn, engine=self.engine,
+                           dedup=self.dedup, mode=mode or self.mode)
+        PLAN_CACHE.put(key, entry)
+        self._builds += 1
+        return entry
+
+    def query(self, q: Query, kg: Optional[Table] = None) -> Table:
+        """Evaluate a BGP :class:`~repro_torch.query.Query` over the
+        device-resident KG; returns the answer :class:`Table`
+        (``SELECT DISTINCT`` semantics, one ``v__t``/``v__v`` column pair
+        per term variable, ``v__p`` per predicate variable).
+
+        The query goes through the same machinery as creation: lowered to
+        the relational IR (:func:`repro_torch.query.lower_query`),
+        annotated with capacities, compiled to one closure on the session
+        device, and cached in the process-wide plan cache under its own
+        structural-fingerprint key tier. A truncation flag triggers one
+        exact recompile at floored capacities, as in :meth:`run`.
+
+        ``kg`` defaults to the session KG (materialized via :meth:`run` on
+        first use); pass an explicit coded triple table to query something
+        else (it shares the session's vocab codes by construction)."""
+        t0 = time.perf_counter()
+        table = self._kg_table(kg)
+        qplan = lower_query(q)
+        sources = {KG_SOURCE: table}
+        key = self._query_key(q, table)
+        entry = PLAN_CACHE.get(key)
+        hit = entry is not None
+        if hit:
+            self._q_cache_hits += 1
+        else:
+            self._q_cache_misses += 1
+            entry = self._build_query(key, qplan, table)
+        plan_s = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        result, over = entry.fn(sources)
+        if host_int(over):
+            hit = False   # the hit did not actually serve this query
+            self._q_recompiles += 1
+            entry = self._build_query(key, qplan, table, mode="exact",
+                                      floor_caps=entry.caps)
+            result, over = entry.fn(sources)
+            if host_int(over):  # exact caps cannot under-size
+                raise RuntimeError("query capacity overflow persisted "
+                                   "after recompile — please report")
+        self._q_executions += 1
+        self._q_last = {"entry": entry, "cache_hit": hit,
+                        "plan_seconds": plan_s,
+                        "exec_seconds": time.perf_counter() - t1}
+        return result
+
+    def explain_query(self, q: Query, kg: Optional[Table] = None) -> str:
+        """Annotated query-plan tree — the query analogue of
+        :meth:`explain`: per-node rows/caps from the session's annotation
+        mode over the KG the query would read."""
+        table = self._kg_table(kg)
+        qplan = lower_query(q)
+        counts, caps = annotate_query(qplan, {KG_SOURCE: table},
+                                      mode=self.mode, slack=self.slack,
+                                      cap_fn=bucket_cap)
+        return dump_root(qplan.root, counts=counts, caps=caps)
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -371,8 +567,18 @@ class KGEngine:
             "rule3": self._tstats.rule3_merges,
             "sigma": self._tstats.sigma_pushdowns,
             "cse_shared": self._tstats.cse_shared_subplans,
+            "query": {
+                "executions": self._q_executions,
+                "cache_hits": self._q_cache_hits,
+                "cache_misses": self._q_cache_misses,
+                "recompiles": self._q_recompiles,
+            },
         }
         if self._last:
             out["last_preprocess_seconds"] = self._last["plan_seconds"]
             out["last_semantify_seconds"] = self._last["exec_seconds"]
+        if self._q_last:
+            out["query"]["last_plan_seconds"] = self._q_last["plan_seconds"]
+            out["query"]["last_exec_seconds"] = self._q_last["exec_seconds"]
+            out["query"]["last_cache_hit"] = self._q_last["cache_hit"]
         return out

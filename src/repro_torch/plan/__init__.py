@@ -7,9 +7,9 @@ and ``compile_plan`` lowers the optimized DAG to one ``sources -> (KG,
 raw)`` closure; ``materialize_plan`` evaluates its relation inputs into
 a concrete ``DIS'`` and ``explain`` prints the annotated DAG.
 """
-from .ir import (Distinct, EmitTriples, EquiJoin, Node, Pred, Project,
-                 Scan, Select, Union, fingerprint, intern, iter_nodes,
-                 make_select, tree_size)
+from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Pred,
+                 Project, Scan, Select, Union, fingerprint, intern,
+                 iter_nodes, make_coleq, make_select, node_order, tree_size)
 from .lower import LogicalPlan, lower, selection_preds
 from .optimize import (PlanStats, cse, merge_maps, optimize,
                        push_projections, push_selections)
@@ -19,11 +19,12 @@ from .compile import (compile_plan, execute_node, input_names,
 from .explain import dump_plan, explain
 
 __all__ = [
-    "Distinct", "EmitTriples", "EquiJoin", "LogicalPlan", "Node",
+    "ColEq", "Distinct", "EmitTriples", "EquiJoin", "LogicalPlan", "Node",
     "PlanStats", "Pred", "Project", "Scan", "Select", "Union", "annotate",
     "compile_plan", "cse", "dump_plan", "execute_node", "explain",
     "fingerprint", "input_names", "intern", "iter_nodes",
-    "join_match_total", "lower", "make_select", "materialize_plan",
+    "join_match_total", "lower", "make_coleq", "make_select",
+    "materialize_plan", "node_order",
     "merge_maps", "optimize", "push_projections", "push_selections",
     "selection_preds", "tree_size",
 ]

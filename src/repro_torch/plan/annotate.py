@@ -39,8 +39,8 @@ import numpy as np
 
 from repro_torch.relalg.table import Table, round_cap
 
-from .ir import (Distinct, EmitTriples, EquiJoin, Node, Project, Scan,
-                 Select, Union)
+from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Project,
+                 Scan, Select, Union)
 from .lower import LogicalPlan
 
 Rows = Tuple[np.ndarray, Tuple[str, ...]]  # valid rows [n, k] + attr names
@@ -69,9 +69,35 @@ def _eval_rows(node: Node, sources: Mapping[str, Table],
             else:  # 'neq' and 'notnull' both exclude one code
                 keep &= col != p.code
         rows, attrs = child[keep], cattrs
+    elif isinstance(node, ColEq):
+        child, cattrs = _eval_rows(node.child, sources, memo)
+        keep = (child[:, cattrs.index(node.left_attr)]
+                == child[:, cattrs.index(node.right_attr)])
+        rows, attrs = child[keep], cattrs
     elif isinstance(node, Distinct):
         child, cattrs = _eval_rows(node.child, sources, memo)
         rows, attrs = np.unique(child, axis=0), cattrs
+    elif isinstance(node, EquiJoin):
+        # materialized exact join — the creation path only ever needs the
+        # match *total* (joins feed EmitTriples directly), but query DAGs
+        # stack π/δ/ColEq on top of ⋈, so exact annotation needs the rows
+        left, lattrs = _eval_rows(node.left, sources, memo)
+        right, rattrs = _eval_rows(node.right, sources, memo)
+        lk = left[:, lattrs.index(node.left_key)]
+        rk = right[:, rattrs.index(node.right_key)]
+        order = np.argsort(rk, kind="stable")
+        rs = rk[order]
+        lo = np.searchsorted(rs, lk, side="left")
+        hi = np.searchsorted(rs, lk, side="right")
+        match = hi - lo
+        total = int(match.sum())
+        li = np.repeat(np.arange(len(lk)), match)
+        starts = np.repeat(np.cumsum(match) - match, match)
+        ri = order[np.repeat(lo, match) + np.arange(total) - starts]
+        rows = np.concatenate(
+            [left[li], right[ri]], axis=1) if total else np.zeros(
+            (0, left.shape[1] + right.shape[1]), dtype=left.dtype)
+        attrs = node.attrs
     elif isinstance(node, Union):
         parts = []
         attrs = node.attrs
@@ -113,7 +139,7 @@ def _bound(node: Node, sources: Mapping[str, Table],
         return hit
     if isinstance(node, Scan):
         out = sources[node.source].capacity
-    elif isinstance(node, (Project, Select, Distinct)):
+    elif isinstance(node, (Project, Select, ColEq, Distinct)):
         out = _bound(node.children()[0], sources, memo)
     elif isinstance(node, Union):
         out = sum(_bound(c, sources, memo) for c in node.inputs)

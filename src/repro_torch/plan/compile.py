@@ -30,8 +30,8 @@ from repro_torch.relalg.guard import host_int
 from repro_torch.relalg.ops import _masked_data, compact
 from repro_torch.relalg.table import pad_rows
 
-from .ir import (Distinct, EmitTriples, EquiJoin, Node, Project, Scan,
-                 Select, Union, iter_nodes)
+from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Project,
+                 Scan, Select, Union, iter_nodes)
 from .lower import LogicalPlan, selection_preds
 
 
@@ -93,6 +93,10 @@ def execute_node(node: Node, sources: Mapping[str, Table],
     elif isinstance(node, Select):
         child = run(node.child)
         out = capped(select_mask(child, _pred_mask(child, node.preds)))
+    elif isinstance(node, ColEq):
+        child = run(node.child)
+        mask = child.column(node.left_attr) == child.column(node.right_attr)
+        out = capped(select_mask(child, mask))
     elif isinstance(node, Distinct):
         out = capped(distinct(run(node.child), dedup=dedup))
     elif isinstance(node, Union):

@@ -16,8 +16,8 @@ from __future__ import annotations
 from typing import Dict, List, Mapping, Optional
 
 from .annotate import annotate
-from .ir import (Distinct, EmitTriples, EquiJoin, Node, Project, Scan,
-                 Select, Union)
+from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Project,
+                 Scan, Select, Union)
 from .lower import LogicalPlan
 
 
@@ -35,6 +35,8 @@ def _label(node: Node) -> str:
         return f"π [{cols}]"
     if isinstance(node, Select):
         return "σ [" + " ∧ ".join(p.describe() for p in node.preds) + "]"
+    if isinstance(node, ColEq):
+        return f"σ= [{node.left_attr} = {node.right_attr}]"
     if isinstance(node, Distinct):
         return "δ"
     if isinstance(node, Union):

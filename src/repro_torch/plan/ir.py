@@ -16,7 +16,8 @@ The node set mirrors the operators the paper's §3 algebra uses: ``Scan``
 (a source extension), ``Project`` (π with rename), ``Select`` (σ),
 ``Distinct`` (δ), ``Union`` (∪, bag), ``EquiJoin`` (⋈ on one attr pair) and
 ``EmitTriples`` (semantification of one triple map — the only non-classical
-operator, producing the 5-column triple relation).
+operator, producing the 5-column triple relation). The query compiler adds
+``ColEq`` (σ= between two columns).
 """
 from __future__ import annotations
 
@@ -111,6 +112,43 @@ class Distinct(Node):
 
     def children(self) -> Tuple[Node, ...]:
         return (self.child,)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColEq(Node):
+    """σ= — keep rows whose ``left_attr`` column equals ``right_attr``.
+
+    The column-vs-column counterpart of :class:`Select`'s column-vs-constant
+    predicates. The query compiler (:mod:`repro_torch.query`) needs it
+    because a coded RDF term is a (template, value) column *pair* while
+    :class:`EquiJoin` equates a single column pair: a BGP join on a shared
+    variable joins on the value columns and then checks the template
+    columns (and any further shared variables) with ``ColEq``. Attrs are
+    kept in sorted order so structurally-equal filters hash-cons.
+    """
+
+    child: Node
+    left_attr: str
+    right_attr: str
+
+    def __post_init__(self):
+        if self.left_attr == self.right_attr:
+            raise ValueError(f"ColEq on a single column {self.left_attr!r}")
+
+    @property
+    def attrs(self) -> Tuple[str, ...]:
+        return self.child.attrs
+
+    def children(self) -> Tuple[Node, ...]:
+        return (self.child,)
+
+
+def make_coleq(child: Node, left_attr: str, right_attr: str) -> Node:
+    """Canonicalizing ``ColEq`` constructor: orders the attr pair so the
+    commutative filter has one structural form."""
+    if left_attr > right_attr:
+        left_attr, right_attr = right_attr, left_attr
+    return ColEq(child, left_attr, right_attr)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,6 +248,8 @@ def intern(node: Node, memo: Optional[Dict[Node, Node]] = None) -> Node:
             return hit
         if isinstance(n, Select):
             out: Node = Select(go(n.child), n.preds)
+        elif isinstance(n, ColEq):
+            out = ColEq(go(n.child), n.left_attr, n.right_attr)
         elif isinstance(n, Project):
             out = Project(go(n.child), n.spec)
         elif isinstance(n, Distinct):
@@ -253,6 +293,9 @@ def fingerprint(roots: Sequence[Node]) -> str:
         elif isinstance(n, Select):
             preds = tuple((p.attr, p.op, p.code) for p in n.preds)
             desc = f"select {visit(n.child)} {preds}"
+        elif isinstance(n, ColEq):
+            desc = (f"coleq {visit(n.child)} "
+                    f"{n.left_attr} {n.right_attr}")
         elif isinstance(n, Project):
             desc = f"project {visit(n.child)} {n.spec}"
         elif isinstance(n, Distinct):
@@ -274,6 +317,18 @@ def fingerprint(roots: Sequence[Node]) -> str:
     for r in roots:
         visit(r)
     return hashlib.sha1("\n".join(lines).encode()).hexdigest()
+
+
+def node_order(roots: Sequence[Node]) -> list:
+    """Deterministic enumeration of a plan DAG's unique nodes.
+
+    The visit order is exactly :func:`fingerprint`'s (post-order over
+    ``children()``, shared subtrees once), so two plans that fingerprint
+    equal assign every node the same index — which is what lets node-keyed
+    metadata (counts, capacities) be compared or stored as plain index
+    lists.
+    """
+    return list(dict.fromkeys(n for r in roots for n in iter_nodes(r)))
 
 
 def make_select(child: Node, preds: Tuple[Pred, ...]) -> Node:
