@@ -5,9 +5,14 @@ Every field is validated in ``__post_init__``: a bad ``engine``/``dedup``/
 any planning work starts. :meth:`EngineConfig.cache_sig` is the static
 configuration component of the plan-cache key.
 
-Static verification (the reference's ``verify="plan"``/``"full"``) is not
-ported yet: ``verify`` defaults to ``"off"`` and the other two levels
-raise ``NotImplementedError``. The KG does not depend on the setting.
+``verify`` is the static-verification level, as in the reference:
+``"plan"`` (the default) gates every optimizer rewrite with its soundness
+contract and verifies each annotated plan before it is compiled;
+``"full"`` also audits the first execution of each new build
+(:func:`repro_torch.analysis.audit_closure`); ``"off"`` skips both. The
+KG does not depend on it, so it stays out of :meth:`EngineConfig.cache_sig`
+(as in the reference): a ``"full"`` session that hits an entry another
+session built audits nothing.
 
 ``jit`` is the reference's switch between a jitted and an eager closure.
 The port's closures always run eagerly, so ``jit`` changes nothing in
@@ -38,7 +43,7 @@ class EngineConfig:
     mode: str = "exact"
     slack: float = 1.0
     jit: bool = True
-    verify: str = "off"
+    verify: str = "plan"
 
     def __post_init__(self):
         if self.engine not in ("rmlmapper", "sdm"):
@@ -63,11 +68,6 @@ class EngineConfig:
         if self.verify not in ("off", "plan", "full"):
             raise ValueError(f"unknown verify level {self.verify!r} "
                              "(expected 'off', 'plan' or 'full')")
-        if self.verify != "off":
-            raise NotImplementedError(
-                f"verify={self.verify!r}: static plan verification is not "
-                "ported yet (it is the port's static-verification slice); "
-                "use verify='off'")
 
     def cache_sig(self) -> Tuple:
         """The static configuration component of the plan-cache key —

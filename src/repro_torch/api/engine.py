@@ -27,6 +27,14 @@ The session runs on the CUDA card unless ``device="cpu"`` is passed;
 without a card and without ``device="cpu"`` it raises
 :class:`repro_torch.device.NoCUDADeviceError`.
 
+Static verification (``EngineConfig.verify``, default ``"plan"``) works
+as in the reference: every optimizer rewrite is gated by its soundness
+contract and every annotated plan is verified before it is compiled;
+``"full"`` also audits the first execution of each new build
+(:func:`repro_torch.analysis.audit_closure`: host syncs against the counted
+reads the plan implies, no collectives, dtype stability); ``"off"`` skips
+all of it.
+
 The port runs one device and keeps no persistent plan store: the
 reference's ``mesh``/``mesh_axis``/``join_exchange``/``calibrate`` belong
 to the multi-GPU slice and ``plan_store`` to the plan-store slice
@@ -34,12 +42,16 @@ to the multi-GPU slice and ``plan_store`` to the plan-store slice
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import (AuditReport, audit_closure,
+                                  expected_host_reads, soundness_gate,
+                                  verify_plan, verify_query_plan)
 from repro_torch.core.rdfizer import RDFizer
 from repro_torch.core.schema import DIS, TRIPLE_ATTRS
 from repro_torch.core.transform import TransformStats, plan_mapsdi
@@ -131,7 +143,8 @@ class KGEngine:
         Rule 1–3 + σ + CSE fixpoint), ``mode`` (``annotate`` mode,
         ``"exact"`` or ``"bound"``), ``slack`` (multiplier on annotated
         counts before bucketing), ``jit`` (keyed, no-op in the eager port)
-        and ``verify``. The canonical spelling.
+        and ``verify`` (``"plan"`` | ``"full"`` | ``"off"``, the static
+        verification level). The canonical spelling.
     engine, dedup, optimize, mode, slack, jit, verify
         The reference's keyword spelling of the same fields: deprecated
         (one ``DeprecationWarning`` per combination per process), folded
@@ -190,6 +203,15 @@ class KGEngine:
         self.engine, self.dedup = config.engine, config.dedup
         self.optimize, self.mode = config.optimize, config.mode
         self.slack = config.slack
+        # static verification level: "plan" (default) gates every rewrite
+        # with its soundness contract and verifies each annotated plan
+        # before compiling; "full" also audits the first execution of each
+        # new build; "off" disables all of it
+        self.verify = config.verify
+        self._verify_plan_checks = 0
+        self._verify_audits = 0
+        #: the report of the session's latest audit (``verify="full"``)
+        self.last_audit: Optional[AuditReport] = None
         self._dis = dis.copy()
         # session view of the extensions, on the session device and
         # re-buffered into geometric capacity buckets so within-bucket
@@ -199,7 +221,8 @@ class KGEngine:
         self.sources: Dict[str, Table] = self._dis.sources
         self._tstats = TransformStats()
         t0 = time.perf_counter()
-        self._plan = (plan_mapsdi(self._dis, stats=self._tstats)
+        self._plan = (plan_mapsdi(self._dis, stats=self._tstats,
+                                  gate=self._rewrite_gate())
                       if self.optimize else lower(self._dis))
         # the session emitter is built over the rewritten maps, in the
         # reference's order, so vocab growth (and so every embedded code)
@@ -261,9 +284,18 @@ class KGEngine:
 
     def explain(self) -> str:
         """Annotated plan tree over the session's current sources (exact
-        host-side annotation, one device)."""
+        host-side annotation, one device); unless ``verify="off"`` it
+        carries the verifier's verdict and each node's ``cols=``."""
         counts, caps = annotate(self._plan)
-        return dump_plan(self._plan, self.engine, counts, caps)
+        schemas = verdict = None
+        if self.verify != "off":
+            report = verify_plan(
+                self._plan, self.engine, counts=counts, caps=caps,
+                sources=self.sources, slack=self.slack,
+                check_canonical=self.optimize, check_cse=self.optimize)
+            schemas, verdict = report.schemas, report.describe()
+        return dump_plan(self._plan, self.engine, counts, caps,
+                         schemas=schemas, verdict=verdict)
 
     def _source_sig(self, sources: Mapping[str, Table]) -> Tuple:
         return tuple(sorted(
@@ -274,12 +306,29 @@ class KGEngine:
         return (self._ir_fp, self._emit_sig) + self.config.cache_sig() + (
             self._source_sig(sources),)
 
+    def _rewrite_gate(self):
+        """The optimizer's per-rewrite soundness hook (``None`` when
+        verification is off)."""
+        return None if self.verify == "off" else soundness_gate
+
+    def _verify_built(self, counts, caps, sources) -> None:
+        """Statically verify the annotated plan before it is compiled; a
+        failure raises :class:`repro_torch.analysis.PlanVerificationError`
+        (a malformed plan must never reach the device, let alone a KG)."""
+        if self.verify == "off":
+            return
+        verify_plan(self._plan, self.engine, counts=counts, caps=caps,
+                    sources=sources, slack=self.slack,
+                    check_canonical=self.optimize,
+                    check_cse=self.optimize).raise_for_status()
+        self._verify_plan_checks += 1
+
     def _replan(self) -> None:
         """Re-lower/re-optimize after a provenance change (σ-baked flags
         dropped by :meth:`ingest`); the cache key follows the new plan."""
         t0 = time.perf_counter()
-        self._plan = (plan_mapsdi(self._dis) if self.optimize
-                      else lower(self._dis))
+        self._plan = (plan_mapsdi(self._dis, gate=self._rewrite_gate())
+                      if self.optimize else lower(self._dis))
         self._ir_fp = fingerprint(self._plan.emits())
         self._plan_seconds += time.perf_counter() - t0
 
@@ -302,6 +351,7 @@ class KGEngine:
                                 sources=sources)
         if floor_caps:  # growth must be monotone or overflow ping-pongs
             caps = {n: max(c, floor_caps.get(n, 0)) for n, c in caps.items()}
+        self._verify_built(counts, caps, sources)
         fn = compile_plan(self._slim_plan(), self._emitter,
                           engine=self.engine, dedup=self.dedup, caps=caps,
                           report_overflow=True)
@@ -328,6 +378,34 @@ class KGEngine:
         return entry, hit
 
     # -- execution -----------------------------------------------------------
+    def _execute(self, step, sources, fresh: bool, **expect):
+        """``step(sources)``: one closure call plus the read of its
+        overflow flag. Under ``verify="full"`` the first execution of a
+        freshly built entry *is* the audited run (no extra execution), so
+        the session's device work and counted reads equal an ``"off"``
+        session's. ``expect`` holds the audit's expectations
+        (:func:`repro_torch.analysis.audit_closure`'s ``plan``/``engine``/
+        ``expected_counts`` and ``expected_host_reads``)."""
+        if not (fresh and self.verify == "full"):
+            return step(sources)
+        report = audit_closure(step, (sources,), single_device=True,
+                               **expect)
+        result, report.result = report.result, None
+        self.last_audit = report
+        report.raise_for_status()
+        self._verify_audits += 1
+        return result
+
+    def _run_entry(self, entry: CachedPlan, sources, fresh: bool):
+        def step(srcs):
+            kg, raw, over = entry.fn(srcs)
+            return kg, raw, host_int(over)
+        return self._execute(step, sources, fresh, plan=entry.plan,
+                             engine=self.engine,
+                             expected_host_reads=functools.partial(
+                                 expected_host_reads, entry.plan,
+                                 self.engine, self.dedup))
+
     def run(self, sources: Optional[Mapping[str, Table]] = None
             ) -> Tuple[Table, torch.Tensor]:
         """Execute the (cached) plan over ``sources`` (default: the session
@@ -341,16 +419,16 @@ class KGEngine:
         entry, hit = self._ensure(sources)
         plan_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        kg, raw, over = entry.fn(sources)
-        if host_int(over):
+        kg, raw, over = self._run_entry(entry, sources, fresh=not hit)
+        if over:
             # some buffer was truncated: re-annotate exactly against the
             # *current* extension, grow caps monotonically, re-run — the
             # one rebuild per capacity-bucket crossing
             hit = False   # the hit did not actually serve this execution
             entry = self._build(entry.key, sources, mode="exact",
                                 floor_caps=entry.caps)
-            kg, raw, over = entry.fn(sources)
-            if host_int(over):  # exact caps cannot under-size
+            kg, raw, over = self._run_entry(entry, sources, fresh=True)
+            if over:  # exact caps cannot under-size
                 raise RuntimeError("capacity overflow persisted after "
                                    "rebuild — please report")
         exec_s = time.perf_counter() - t1
@@ -433,13 +511,19 @@ class KGEngine:
     def _build_query(self, key: Tuple, qplan, kg: Table,
                      mode: Optional[str] = None,
                      floor_caps: Optional[Mapping] = None) -> CachedPlan:
-        """Query sibling of :meth:`_build`: annotate, then compile the
-        single-device closure."""
-        counts, caps = annotate_query(qplan, {KG_SOURCE: kg},
+        """Query sibling of :meth:`_build`: annotate, statically verify,
+        then compile the single-device closure."""
+        sources = {KG_SOURCE: kg}
+        counts, caps = annotate_query(qplan, sources,
                                       mode=mode or self.mode,
                                       slack=self.slack, cap_fn=bucket_cap)
         if floor_caps:  # growth must be monotone or overflow ping-pongs
             caps = {n: max(c, floor_caps.get(n, 0)) for n, c in caps.items()}
+        if self.verify != "off":
+            verify_query_plan(qplan, counts=counts, caps=caps,
+                              sources=sources,
+                              slack=self.slack).raise_for_status()
+            self._verify_plan_checks += 1
         fn = compile_query(qplan, dedup=self.dedup, caps=caps)
         entry = CachedPlan(key=key, plan=qplan, emitter=None, counts=counts,
                            caps=caps, fn=fn, engine=self.engine,
@@ -447,6 +531,17 @@ class KGEngine:
         PLAN_CACHE.put(key, entry)
         self._builds += 1
         return entry
+
+    def _run_query_entry(self, entry: CachedPlan, sources, fresh: bool):
+        def step(srcs):
+            result, over = entry.fn(srcs)
+            return result, host_int(over)
+        return self._execute(step, sources, fresh,
+                             expected_counts={"all_gather": 0,
+                                              "all_to_all": 0},
+                             expected_host_reads=functools.partial(
+                                 expected_host_reads, entry.plan, None,
+                                 self.dedup))
 
     def query(self, q: Query, kg: Optional[Table] = None) -> Table:
         """Evaluate a BGP :class:`~repro_torch.query.Query` over the
@@ -478,14 +573,14 @@ class KGEngine:
             entry = self._build_query(key, qplan, table)
         plan_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        result, over = entry.fn(sources)
-        if host_int(over):
+        result, over = self._run_query_entry(entry, sources, fresh=not hit)
+        if over:
             hit = False   # the hit did not actually serve this query
             self._q_recompiles += 1
             entry = self._build_query(key, qplan, table, mode="exact",
                                       floor_caps=entry.caps)
-            result, over = entry.fn(sources)
-            if host_int(over):  # exact caps cannot under-size
+            result, over = self._run_query_entry(entry, sources, fresh=True)
+            if over:  # exact caps cannot under-size
                 raise RuntimeError("query capacity overflow persisted "
                                    "after recompile — please report")
         self._q_executions += 1
@@ -497,13 +592,20 @@ class KGEngine:
     def explain_query(self, q: Query, kg: Optional[Table] = None) -> str:
         """Annotated query-plan tree — the query analogue of
         :meth:`explain`: per-node rows/caps from the session's annotation
-        mode over the KG the query would read."""
+        mode over the KG the query would read, with the verifier's verdict
+        and ``cols=`` unless ``verify="off"``."""
         table = self._kg_table(kg)
         qplan = lower_query(q)
-        counts, caps = annotate_query(qplan, {KG_SOURCE: table},
-                                      mode=self.mode, slack=self.slack,
-                                      cap_fn=bucket_cap)
-        return dump_root(qplan.root, counts=counts, caps=caps)
+        sources = {KG_SOURCE: table}
+        counts, caps = annotate_query(qplan, sources, mode=self.mode,
+                                      slack=self.slack, cap_fn=bucket_cap)
+        schemas = verdict = None
+        if self.verify != "off":
+            report = verify_query_plan(qplan, counts=counts, caps=caps,
+                                       sources=sources, slack=self.slack)
+            schemas, verdict = report.schemas, report.describe()
+        return dump_root(qplan.root, counts=counts, caps=caps,
+                         schemas=schemas, verdict=verdict)
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -551,7 +653,13 @@ class KGEngine:
         out = {
             "engine": self.engine, "dedup": self.dedup, "mode": self.mode,
             "slack": self.slack, "optimize": self.optimize,
-            "verify": self.config.verify, "device": str(self.device),
+            "verify": {"mode": self.verify,
+                       "plan_checks": self._verify_plan_checks,
+                       "audits": self._verify_audits,
+                       # rehydrated plan-store entries verified: none until
+                       # the plan store is ported (ROADMAP.md Queue 1 item 5)
+                       "store_checks": 0},
+            "device": str(self.device),
             "executions": self._executions, "ingests": self._ingests,
             "ingested_rows": self._ingested_rows,
             "builds": self._builds,

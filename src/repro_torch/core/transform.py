@@ -191,15 +191,17 @@ def _dis_signature(dis: DIS) -> Tuple:
 
 
 def plan_mapsdi(dis: DIS, max_iters: int = 8,
-                stats: Optional[TransformStats] = None):
+                stats: Optional[TransformStats] = None, gate=None):
     """Symbolic fixpoint: lower the DIS and run the optimizer (Rules 1–3 +
     σ pushdown + CSE) to convergence. Pure host-side rewriting — no device
     work, no host syncs. Returns the optimized
-    :class:`~repro_torch.plan.lower.LogicalPlan`."""
+    :class:`~repro_torch.plan.lower.LogicalPlan`. ``gate`` is forwarded to
+    :func:`repro_torch.plan.optimize.optimize` (the rewrite-soundness
+    hook)."""
     from repro_torch.plan.lower import lower
     from repro_torch.plan.optimize import optimize
     plan = lower(dis)
-    pstats = optimize(plan, max_iters=max_iters)
+    pstats = optimize(plan, max_iters=max_iters, gate=gate)
     if stats is not None:
         stats.rule1_applications += pstats.rule1_applications
         stats.rule2_applications += pstats.rule2_applications

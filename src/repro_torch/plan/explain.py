@@ -7,9 +7,8 @@ once and show up as ``(shared #k)`` references afterwards, making the
 common-subplan elimination visible.
 
 The port plans on one device: the mesh annotations (``n_shards``,
-``exchanges``) wait for the multi-GPU slice and the static verifier's
-(``schemas``, ``verdict``) for the static-verification slice (ROADMAP.md
-Queue 1 items 4 and 3); passing them raises ``NotImplementedError``.
+``exchanges``) wait for the multi-GPU slice (ROADMAP.md Queue 1 item 4);
+passing them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -67,7 +66,10 @@ def dump_plan(plan: LogicalPlan, engine: str = "rmlmapper",
               schemas: Optional[Mapping[Node, object]] = None,
               verdict: Optional[str] = None) -> str:
     """Text tree of the whole plan DAG with per-node annotations
-    (``rows=`` from ``counts``, ``cap=`` from ``caps``)."""
+    (``rows=`` from ``counts``, ``cap=`` from ``caps``). ``schemas`` (the
+    static verifier's per-node inference, ``repro_torch.analysis
+    .verify_plan(...).schemas``) adds a ``cols=`` bit per node; ``verdict``
+    (e.g. ``report.describe()``) is printed as a header above the tree."""
     return dump_root(plan.sink(engine), counts=counts, caps=caps,
                      exchanges=exchanges, schemas=schemas, verdict=verdict)
 
@@ -79,20 +81,24 @@ def dump_root(root: Node,
               schemas: Optional[Mapping[Node, object]] = None,
               verdict: Optional[str] = None) -> str:
     """Root-generic body of :func:`dump_plan` — renders any IR DAG from
-    its root node."""
+    its root node. Query plans (whose root is the answer δ rather than an
+    engine sink) use this directly via ``KGEngine.explain_query``."""
     if exchanges is not None:
         _not_ported("exchanges (a mesh plan's ⋈ decisions)", 4, "multi-GPU")
-    if schemas is not None or verdict is not None:
-        _not_ported("schemas/verdict (the static verifier's report)", 3,
-                    "static-verification")
     counts = counts or {}
     caps = caps or {}
+    schemas = schemas or {}
     shared_ids: Dict[int, int] = {}
     seen_multi = _multi_referenced(root)
     lines: List[str] = []
+    if verdict:
+        lines.extend(verdict.splitlines())
 
     def annot(node: Node) -> str:
         bits = []
+        schema = schemas.get(node)
+        if schema is not None and not isinstance(node, Scan):
+            bits.append(f"cols={schema.describe()}")
         if node in counts:
             bits.append(f"rows={counts[node]}")
         if node in caps:

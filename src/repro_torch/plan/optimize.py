@@ -18,7 +18,7 @@ no device work, no host syncs. The correspondence to the paper:
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from repro_torch.core.analyze import merge_groups, referenced_attrs, \
     sorted_reference_poms
@@ -232,16 +232,34 @@ def _iter_ids(root: Node):
 
 
 def optimize(plan: LogicalPlan, max_iters: int = 8,
-             stats: Optional[PlanStats] = None) -> PlanStats:
+             stats: Optional[PlanStats] = None,
+             gate: Optional[Callable[
+                 [str, Tuple[List[TripleMap], Dict[str, Node]], LogicalPlan],
+                 None]] = None) -> PlanStats:
     """Run all rewrite passes to a fixpoint (paper: "until a fixed point
-    over S' and M' is reached"), then hash-cons. Purely symbolic."""
+    over S' and M' is reached"), then hash-cons. Purely symbolic.
+
+    ``gate``, when given, is called as ``gate(pass_name, (maps_before,
+    inputs_before), plan)`` after every pass *that changed the plan* —
+    the hook point for :func:`repro_torch.analysis.soundness_gate`, which
+    asserts each rewrite's lossless precondition and names the offending
+    pass on violation."""
     stats = stats if stats is not None else PlanStats()
+
+    def run(name, pass_fn):
+        before = ((list(plan.maps), dict(plan.inputs))
+                  if gate is not None else None)
+        pass_fn(plan, stats)
+        if gate is not None and (before[0] != plan.maps or
+                                 before[1] != plan.inputs):
+            gate(name, before, plan)
+
     for _ in range(max_iters):
         sig = (tuple(plan.maps), dict(plan.inputs))
-        merge_maps(plan, stats)
-        push_projections(plan, stats)
-        push_selections(plan, stats)
+        run("merge_maps", merge_maps)
+        run("push_projections", push_projections)
+        run("push_selections", push_selections)
         if (tuple(plan.maps), plan.inputs) == sig:
             break
-    cse(plan, stats)
+    run("cse", cse)
     return stats

@@ -81,7 +81,17 @@ def _resolve_dedup(dedup: Optional[str]) -> str:
 # ---------------------------------------------------------------------------
 
 def _pad_like(data: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(PAD_ID, dtype=torch.int32, device=data.device)
+    # a fill on the device: ``torch.tensor(PAD_ID, device=...)`` would copy
+    # from the host, which on a CUDA device blocks until the stream drains
+    return torch.full((), PAD_ID, dtype=torch.int32, device=data.device)
+
+
+def _columns(data: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
+    """``data[:, idx]`` from column views: a Python list index is first
+    copied to the device, a blocking host-to-device copy on CUDA."""
+    if not idx:
+        return data[:, :0]
+    return torch.stack([data[:, i] for i in idx], dim=1)
 
 
 def _masked(data: torch.Tensor, count) -> torch.Tensor:
@@ -136,7 +146,7 @@ def sort_lex(table: Table) -> torch.Tensor:
 def project(table: Table, attrs: Sequence[str]) -> Table:
     """π_attrs — keep only ``attrs`` (bag semantics: rows unchanged)."""
     idx = [table.col_index(a) for a in attrs]
-    return Table(data=table.data[:, idx], count=table.count,
+    return Table(data=_columns(table.data, idx), count=table.count,
                  attrs=tuple(attrs))
 
 
@@ -150,7 +160,7 @@ def project_as(table: Table, spec: Sequence[Tuple[str, str]]) -> Table:
     if len(set(names)) != len(names):
         raise ValueError(f"project_as produces duplicate attrs: {names}")
     idx = [table.col_index(a) for a, _ in spec]
-    return Table(data=table.data[:, idx], count=table.count,
+    return Table(data=_columns(table.data, idx), count=table.count,
                  attrs=tuple(names))
 
 
@@ -188,8 +198,7 @@ def distinct_rows(data: torch.Tensor, count
     sorted_data = masked[_lex_perm(masked)]
     prev = torch.roll(sorted_data, 1, dims=0)
     first = torch.any(sorted_data != prev, dim=1)
-    if capacity:
-        first[0] = True
+    first[:1].fill_(True)   # a fill, not a copy of a host scalar
     valid = torch.arange(capacity, dtype=torch.int32,
                          device=data.device) < count
     return compact(sorted_data, first & valid)
@@ -233,8 +242,7 @@ def distinct_rows_hashed(data: torch.Tensor, count, *,
 
 def _prev_valid(valid_s: torch.Tensor) -> torch.Tensor:
     prev = torch.roll(valid_s, 1)
-    if prev.shape[0]:
-        prev[0] = False
+    prev[:1].fill_(False)   # a fill, not a copy of a host scalar
     return prev
 
 
@@ -268,9 +276,8 @@ def _distinct_hashed_sorted(data: torch.Tensor, count, *,
         hash_eq = hs == torch.roll(hs, 1)
         keep_raw = ~(hash_eq & row_eq)
         coll_raw = hash_eq & ~row_eq
-        if capacity:
-            keep_raw[0] = True
-            coll_raw[0] = False
+        keep_raw[:1].fill_(True)
+        coll_raw[:1].fill_(False)
 
     collision = torch.any(coll_raw & valid_s & _prev_valid(valid_s))
     if host_int(collision):
@@ -404,8 +411,8 @@ def append_rows(base: Table, delta: Table,
     out = pad_rows(data, cap + 1)
     out[dest] = _masked_data(aligned)
     return Table(data=out[:cap],
-                 count=torch.tensor(total, dtype=torch.int32,
-                                    device=base.device),
+                 count=torch.full((), total, dtype=torch.int32,
+                                  device=base.device),
                  attrs=base.attrs)
 
 

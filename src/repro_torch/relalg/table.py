@@ -48,8 +48,8 @@ def shrink_to_fit(table: "Table", mult: int = 8, *,
     data = torch.full((cap, table.n_attrs), PAD_ID, dtype=torch.int32,
                       device=table.device)
     data[:n] = table.data[:n]
-    return Table(data=data, count=torch.tensor(n, dtype=torch.int32,
-                                               device=table.device),
+    return Table(data=data, count=torch.full((), n, dtype=torch.int32,
+                                             device=table.device),
                  attrs=table.attrs)
 
 

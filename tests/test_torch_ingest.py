@@ -100,7 +100,9 @@ def test_engine_config_validation():
         TA.EngineConfig(slack=0.5)
     with pytest.raises(ValueError, match="verify"):
         TA.EngineConfig(verify="some")
-    for level in ("plan", "full"):
-        with pytest.raises(NotImplementedError, match="verification"):
-            TA.EngineConfig(verify=level)
-    assert TA.EngineConfig().verify == "off"
+    # the reference's levels and default; the level is not keyed
+    for level in ("off", "plan", "full"):
+        assert TA.EngineConfig(verify=level).verify == level
+        assert TA.EngineConfig(verify=level).cache_sig() == \
+            TA.EngineConfig().cache_sig()
+    assert TA.EngineConfig().verify == JA.EngineConfig().verify == "plan"

@@ -354,7 +354,7 @@ def test_kg_entry_points_match_reference(case, engine, dedup,
     same_kg(jfn(), tfn())
 
     je = JA.KGEngine(jdis, config=JA.EngineConfig(engine=engine,
-                                                  dedup=dedup, verify="off"))
+                                                  dedup=dedup))
     te = TA.KGEngine(tdis, config=TA.EngineConfig(engine=engine,
                                                   dedup=dedup),
                      device="cpu")
@@ -493,9 +493,14 @@ def test_unported_explain_arguments_raise():
         TP.explain(plan, n_shards=2)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         TP.dump_plan(plan, exchanges={})
-    for kw in ({"schemas": {}}, {"verdict": "ok"}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            TP.dump_plan(plan, **kw)
+    # the static verifier's schemas and verdict are ported: the dump
+    # carries them as the reference's does
+    from repro_torch.analysis import verify_plan
+    report = verify_plan(plan, "sdm")
+    text = TP.dump_plan(plan, "sdm", schemas=report.schemas,
+                        verdict=report.describe())
+    assert text.startswith(report.describe() + "\n")
+    assert "cols=" in text
 
 
 def test_dis_device_is_the_sources_device():

@@ -15,7 +15,8 @@ to 25 numpy-seeded random connected BGPs shaped like
 also holds the port's ``KGEngine`` keyword surface to the reference's.
 
 Inputs come from numpy seeds (no Hypothesis, so a run writes no example
-database). The reference runs with ``verify="off"`` and ``jit=True``: on
+database). Both packages run at the default ``verify="plan"`` (so the
+explain texts carry the same verdict), the reference with ``jit=True``: on
 this CPU backend its eager mode compiles every op on first use and takes
 about 3.5 times as long for the same queries. Every test starts and ends
 with both packages' plan caches empty (``isolated_plan_caches``).
@@ -68,8 +69,7 @@ def make_dis(kind, n, seed):
 
 def make_sessions(kind, n, seed, **cfg):
     jdis, tdis = make_dis(kind, n, seed)
-    je = JA.KGEngine(jdis, config=JA.EngineConfig(**CFG, verify="off",
-                                                  **cfg))
+    je = JA.KGEngine(jdis, config=JA.EngineConfig(**CFG, **cfg))
     te = TA.KGEngine(tdis, config=TA.EngineConfig(**CFG, **cfg),
                      device="cpu")
     jkg, _ = je.create_kg()
