@@ -405,7 +405,7 @@ def main_path_phase(torch, dev, workloads):
                 "== cpu plain")
     shapes = sorted(shapes, key=lambda s: (s[1], s[0]))
     log(f"hash δ shapes (capacity, K) on the main path: {shapes}")
-    return launches, shapes
+    return launches, shapes, gpu
 
 
 # ---------------------------------------------------------------------------
@@ -940,6 +940,227 @@ def verify_phase(torch, dev, card, workloads):
 
 
 # ---------------------------------------------------------------------------
+# phase 2e
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 4
+#: the whole group's limit (and each collective's), seconds
+MESH_TIMEOUT = 600
+MESH_STRATEGIES = ("gather", "repartition", "auto")
+#: the skewed DIS: every row of both sources on one join key (child rows,
+#: parent rows)
+MESH_SKEW = (200_000, 8)
+
+
+def skewed_dis(n_child: int, n_parent: int):
+    """Two maps joined on ``k`` with every row on the one key ``K`` (the
+    all-rows-one-key case of ``tests/test_join_exchange.py``, larger)."""
+    from repro_torch.core import parse_dis
+    spec = {
+        "sources": {
+            "child": {"attrs": ["ID", "k", "v"],
+                      "records": [{"ID": i, "k": "K", "v": f"v{i}"}
+                                  for i in range(n_child)]},
+            "parent": {"attrs": ["ID", "k", "p"],
+                       "records": [{"ID": i, "k": "K", "p": f"p{i % 5}"}
+                                   for i in range(n_parent)]},
+        },
+        "maps": [
+            {"name": "M1", "source": "child",
+             "subject": {"template": "http://ex/C/{v}", "class": "ex:C"},
+             "poms": [
+                 {"predicate": "ex:val", "object": {"reference": "v"}},
+                 {"predicate": "ex:rel",
+                  "object": {"parentTriplesMap": "M2",
+                             "joinCondition": {"child": "k",
+                                               "parent": "k"}}}]},
+            {"name": "M2", "source": "parent",
+             "subject": {"template": "http://ex/P/{p}", "class": "ex:P"},
+             "poms": [{"predicate": "ex:key", "object": {"reference": "k"}}]},
+        ],
+    }
+    return parse_dis(spec, device="cpu")
+
+
+def mesh_rank(dis, deltas, skew):
+    """One rank of the mesh phase (every rank runs it, on the one card):
+    per engine and ⋈ exchange a session's four main-path steps, the
+    skewed DIS under the repartition exchange, and one calibrated
+    session. Each step is timed (ending in a device sync) and carries its
+    kernel launches, hash δ calls and the collectives its closure calls
+    ran, between a reset and a read."""
+    import torch
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.core.distributed import (exchange_shapes,
+                                              reset_exchange_shapes)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.relalg.ops import (hash_dedup_counts,
+                                        reset_hash_dedup_counts)
+    mesh = make_mesh((MESH_RANKS,), ("data",))
+    reset_exchange_shapes()
+
+    def run_step(eng, fn):
+        torch.cuda.synchronize()
+        before = eng.stats()["mesh"]["collectives"]
+        reset_launch_counts()
+        reset_hash_dedup_counts()
+        t0 = time.perf_counter()
+        kg, st = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        after = eng.stats()["mesh"]["collectives"]
+        return {"codes": kg.to_codes(), "raw": st["raw_triples"],
+                "recompiles": st["recompiles"],
+                "hit": st["plan_cache_hit"], "seconds": secs,
+                "launches": launch_counts(), "dedup": hash_dedup_counts(),
+                "collectives": {k: after[k] - before[k] for k in after}}
+
+    def session(d, engine, strategy, **kw):
+        clear_plan_cache()
+        return KGEngine(d, config=EngineConfig(
+            engine=engine, dedup="hash", mesh=mesh,
+            join_exchange=strategy, **kw))
+
+    runs = {}
+    for engine in ENGINES:
+        for strategy in MESH_STRATEGIES:
+            eng = session(dis, engine, strategy)
+            steps = [run_step(eng, eng.create_kg),
+                     run_step(eng, eng.create_kg)]
+            steps += [run_step(eng, lambda d=d: eng.ingest(d))
+                      for d in deltas]
+            runs[engine, strategy] = {
+                "steps": steps, "mesh": eng.stats()["mesh"],
+                "wire": [ln.strip() for ln in eng.explain().splitlines()
+                         if "exchange=" in ln]}
+        eng = session(skew, engine, "repartition")
+        runs[engine, "skew"] = {"steps": [run_step(eng, eng.create_kg)],
+                                "mesh": eng.stats()["mesh"], "wire": []}
+    eng = session(dis, "sdm", "auto", calibrate=True)
+    runs["sdm", "calibrated"] = {"steps": [run_step(eng, eng.create_kg)],
+                                 "mesh": eng.stats()["mesh"], "wire": []}
+    return {"rank": mesh.rank, "mesh": mesh.describe(), "runs": runs,
+            "calibration": eng.stats()["calibration"],
+            "shapes": exchange_shapes()}
+
+
+def mesh_phase(torch, dev, card, workloads, main_gpu):
+    """Group B at GROUP_B_ROWS on MESH_RANKS ranks sharing the card over
+    gloo: per engine and exchange the four steps of phase 2, each KG (and
+    raw) equal to phase 2's single-device card KG; the skewed DIS with one
+    recompile and the single-device KG; a calibrated session. Returns the
+    launches summed over the ranks and the exchange shapes the radix
+    kernel was handed."""
+    import numpy as np
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.mesh import RankError, launch_ranks
+    name = f"group_b_{GROUP_B_ROWS}"
+    dis, small, big = next((d, s, b) for n, d, s, b in workloads
+                           if n == name)
+    deltas = (encode(small, dis, dis.vocab), encode(big, dis, dis.vocab))
+    t0 = time.perf_counter()
+    skew = skewed_dis(*MESH_SKEW)
+    clear_plan_cache()
+    skew_kg = {}
+    for engine in ENGINES:
+        kg, st = KGEngine(skew, config=EngineConfig(
+            engine=engine, dedup="hash"), device=dev).create_kg()
+        skew_kg[engine] = (kg.to_codes(), st["raw_triples"])
+    log(f"mesh: skewed DIS ({MESH_SKEW[0]} child rows, {MESH_SKEW[1]} "
+        f"parent rows, one key) built and run on one device in "
+        f"{time.perf_counter() - t0:.1f} s")
+    _lib.build()            # once, before the ranks reach their launches
+    t0 = time.perf_counter()
+    try:
+        ranks = launch_ranks(mesh_rank, MESH_RANKS, timeout=MESH_TIMEOUT,
+                             args=(dis, deltas, skew))
+    except RankError as e:
+        raise SmokeFailure(f"a mesh rank failed: {e}") from e
+    log(f"mesh: {MESH_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s "
+        f"(spawn included)")
+    backends = {r["mesh"]["backend"] for r in ranks}
+    check([r["rank"] for r in ranks] == list(range(MESH_RANKS)),
+          "mesh ranks out of order")
+    totals = dict.fromkeys(INT_KERNELS, 0)
+    for key in ranks[0]["runs"]:
+        engine, what = key
+        if what == "skew":
+            want = [{"codes": skew_kg[engine][0], "raw": skew_kg[engine][1]}]
+        else:
+            want = main_gpu[(name, engine)]
+        per_rank = [r["runs"][key] for r in ranks]
+        for i, w in enumerate(want[:len(per_rank[0]["steps"])]):
+            where = f"mesh {engine} {what} step {i}"
+            launches = dict.fromkeys(INT_KERNELS, 0)
+            for run in per_rank:
+                g = run["steps"][i]
+                check(np.array_equal(g["codes"], w["codes"]) and
+                      g["raw"] == w["raw"],
+                      f"{where}: KG or raw differs from the single-device "
+                      "card run")
+                calls = g["dedup"]["calls"]
+                n_calls = sum(calls.values())
+                n_radix = sum(v for (layout, _c, _k), v in calls.items()
+                              if layout == "radix")
+                sites = g["collectives"]["all_to_all"] // 2
+                want_l = {"rowhash": n_calls,
+                          "hash_neighbor_flags": n_calls,
+                          "radix_partition": n_radix + sites}
+                got_l = {k: g["launches"][k] for k in INT_KERNELS}
+                check(got_l == want_l,
+                      f"{where}: launches {got_l}, the exchange and δ "
+                      f"sites imply {want_l}")
+                for k in INT_KERNELS:
+                    launches[k] += got_l[k]
+                    totals[k] += got_l[k]
+            steps = [run["steps"][i] for run in per_rank]
+            secs = [s["seconds"] for s in steps]
+            log(f"mesh {engine:9s} {what:11s} {STEPS[i]:17s} "
+                f"{max(secs):8.3f} s (slowest rank; rank 0 "
+                f"{secs[0]:.3f})  kg {len(steps[0]['codes'])}  raw "
+                f"{steps[0]['raw']}  recompiles {steps[0]['recompiles']}  "
+                f"launches (4 ranks) {json.dumps(launches)}  collectives "
+                f"(rank 0) {json.dumps(steps[0]['collectives'])}  "
+                f"{sorted(backends)} x{MESH_RANKS}  == one-device card KG  "
+                f"({card})")
+        r0 = per_rank[0]["steps"]
+        if what in MESH_STRATEGIES:
+            check(r0[1]["hit"] and r0[1]["recompiles"] == 0,
+                  f"mesh {engine} {what}: warm create_kg rebuilt")
+            check(r0[2]["recompiles"] == 0,
+                  f"mesh {engine} {what}: in-bucket ingest recompiled")
+            check(r0[3]["recompiles"] == 1,
+                  f"mesh {engine} {what}: bucket crossing cost "
+                  f"{r0[3]['recompiles']} recompiles, expected 1")
+            for ln in per_rank[0]["wire"]:
+                log(f"mesh {engine:9s} {what:11s} explain: {ln}")
+        if what == "skew":
+            check(r0[0]["recompiles"] == 1,
+                  f"mesh {engine} skew: {r0[0]['recompiles']} recompiles, "
+                  "expected exactly 1")
+    cal = ranks[0]["calibration"]
+    check(cal is not None and cal["source"] == "measured" and
+          all(r["calibration"] == cal for r in ranks),
+          f"mesh calibration {cal} not measured or not equal on every rank")
+    log(f"mesh calibration fit ({MESH_RANKS} ranks, {sorted(backends)}, "
+        f"one card): all_gather {cal['all_gather_bw'] / 1e9:.4f} GB/s, "
+        f"all_to_all {cal['all_to_all_bw'] / 1e9:.4f} GB/s, launch "
+        f"{cal['launch_s'] * 1e6:.1f} us  ({card})")
+    log(f"mesh launches (all ranks, all runs): {json.dumps(totals)}")
+    check(all(totals[k] > 0 for k in INT_KERNELS),
+          f"a δ or exchange kernel was not launched on the mesh: {totals}")
+    shapes = {}
+    for r in ranks:
+        for shape, n in r["shapes"].items():
+            shapes[shape] = shapes.get(shape, 0) + n
+    log(f"mesh exchange shapes (rows, K, ranks, cap_bucket, key_cols): "
+        f"{sorted(shapes, key=str)}")
+    return totals, sorted(shapes, key=str)
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -1071,13 +1292,14 @@ def radix_call_launches(torch, dev):
     return [], RADIX_TRACE_ATTEMPTS
 
 
-def kernel_phase(torch, dev, path_shapes):
+def kernel_phase(torch, dev, path_shapes, exchange_shapes=()):
     from repro_torch.kernels import selfcheck
 
     errs = {name: 0.0 for name in INT_KERNELS}
     bad = {name: 0 for name in INT_KERNELS}
     cases = selfcheck.cases(dev, N_MAIN, ks=CHECK_KS,
-                            path_shapes=path_shapes)
+                            path_shapes=path_shapes,
+                            exchange_shapes=exchange_shapes)
     for case in cases:
         n_bad = selfcheck.mismatches(case)
         bad[case.kernel] += n_bad
@@ -1118,10 +1340,52 @@ def kernel_phase(torch, dev, path_shapes):
                 f"plain {plain_ms:.4f} ms  bound {bound:.4f} ms ({bound_by}"
                 f", {100 * bound / ms:.1f}% of it)  host-bound kernel "
                 f"{k_host} plain {p_host}")
+    if exchange_shapes:
+        # the mesh's largest exchange, in exchange mode (one bucket a rank)
+        n, k, nb, cb, cols = max(exchange_shapes,
+                                 key=lambda s: (s[0] * s[1], str(s)))
+        ex = exchange_work(torch, dev, n, k, nb, cb, cols)
+        ms, k_host = device_ms(torch, ex["kernel"], TIMING_CALLS["kernel"])
+        plain_ms, p_host = device_ms(torch, ex["plain"],
+                                     TIMING_CALLS["plain"])
+        bound = max(ex["bytes"] / HBM_BYTES_PER_S,
+                    ex["ops"] / INT32_OPS_PER_S) * 1e3
+        shape = f"N={n} K={k} nb={nb} cap={cb} key_cols={cols}"
+        results["radix exchange"] = {"exchange_ms": ms,
+                                     "exchange_plain_ms": plain_ms,
+                                     "exchange_bound_ms": bound,
+                                     "exchange_shape": shape}
+        log(f"time radix_partition      exchange {shape} kernel {ms:.4f} "
+            f"ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
+            f"({100 * bound / ms:.1f}% of it)  host-bound kernel {k_host} "
+            f"plain {p_host}")
     # the kernels line reports the sink δ's width (5-column triples) at
     # its largest main-path input
     report = (largest[5], 5) if 5 in largest else (N_MAIN, 5)
     return errs, bad, results, report
+
+
+def exchange_work(torch, dev, n: int, k: int, nb: int, cb: int, cols):
+    """Thunks over input copies for the radix partition in exchange mode
+    at one mesh shape (``count`` a fifth below N, as the checks take it),
+    and the bytes and operations the function needs."""
+    import numpy as np
+    from repro_torch.kernels.radix_partition import (radix_partition_kernel,
+                                                     radix_partition_ref)
+    rows = np.random.default_rng(3).integers(
+        0, max(2, n // 2), (n, k)).astype(np.int32)
+    copies = min(64, max(2, -(-2 * L2_BYTES // (n * k * 4))))
+    x = [torch.from_numpy(rows).to(dev) for _ in range(copies)]
+    count = n - n // 5
+    cnt = torch.tensor(count, dtype=torch.int32, device=dev)
+    kw = dict(n_buckets=nb, cap_bucket=cb, key_cols=cols)
+    n_key = k if cols is None else len(cols)
+    return {"kernel": [lambda t=t: radix_partition_kernel(t, cnt, **kw)
+                       for t in x],
+            "plain": [lambda t=t: radix_partition_ref(t, cnt, **kw)
+                      for t in x],
+            "bytes": count * k * 4 + 4 + nb * cb * k * 4 + nb * 4 + 1,
+            "ops": count * (11 * n_key + 8) + count * 8}
 
 
 # ---------------------------------------------------------------------------
@@ -1639,13 +1903,17 @@ def main() -> int:
         log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
             f"(nvcc {_lib.last_build_seconds:.2f} s)")
         workloads = build_workloads()
-        launches, path_shapes = main_path_phase(torch, dev, workloads)
+        launches, path_shapes, main_gpu = main_path_phase(torch, dev,
+                                                          workloads)
         paper_phase(torch, dev, card, workloads)
         query_phase(torch, dev, card, workloads)
         verify_phase(torch, dev, card, workloads)
-        del workloads
-        errs, bad, times, (n_rep, k_rep) = kernel_phase(torch, dev,
-                                                        path_shapes)
+        mesh_launches, mesh_shapes = mesh_phase(torch, dev, card, workloads,
+                                                main_gpu)
+        del workloads, main_gpu
+        errs, bad, times, (n_rep, k_rep) = kernel_phase(
+            torch, dev, path_shapes, [(n, k, nb, cb, cols) for
+                                      n, k, nb, cb, cols in mesh_shapes])
         # float32 products in full float32 (the plain versions' matmuls)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -1667,6 +1935,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            **({"mesh_launches": mesh_launches[name]}
+               if name in mesh_launches else {}),
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -1675,7 +1945,9 @@ def main() -> int:
             "shape": t["shape"],
             **{k: t[k] for k in ("fp32_bound_ms", "decode_ms",
                                  "decode_bound_ms", "decode_shape")
-               if k in t}})
+               if k in t},
+            **(times.get("radix exchange", {})
+               if name == "radix_partition" else {})})
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -27,7 +27,8 @@ three invariants:
   namespaces are counted under the reference's keys (``all_gather``,
   ``all_to_all``) and held against :func:`expected_collectives` or an
   explicit expectation (``collective-mismatch``); a single-device closure
-  must run none.
+  must run none. A mesh closure runs ``dist.all_to_all_single`` /
+  ``dist.all_gather``, which reach the dispatcher as ``c10d`` ops.
 * **dtype stability** — no float64 anywhere; no int64 value outside the
   port functions of :data:`INT64_SITES`, which carry hashes (uint32 values
   held in int64, since PyTorch has no usable uint32 arithmetic on the
@@ -71,7 +72,8 @@ _COLLECTIVE_NAMESPACES = ("c10d", "_c10d_functional")
 #: eqn fan-out per exchange site: one key-repartition lowers to 2
 #: ``all_to_all`` (row payload + per-bucket counts), one table gather to
 #: 2 ``all_gather`` (rows + counts) — the reference's measured values,
-#: which the multi-GPU slice must keep
+#: which the port's mesh closure keeps (``core/distributed.py``,
+#: ``plan/mesh.py``)
 EQNS_PER_REPARTITION = 2
 EQNS_PER_GATHER = 2
 
@@ -274,12 +276,20 @@ def expected_query_collectives(plan, n_shards: int = 1,
 
 def expected_host_reads(plan, engine: Optional[str] = "rmlmapper",
                         dedup: Optional[str] = None, *,
-                        dedup_calls: Optional[Mapping[Tuple, int]] = None
-                        ) -> int:
+                        dedup_calls: Optional[Mapping[Tuple, int]] = None,
+                        n_shards: Optional[int] = None) -> int:
     """Counted host reads one run of a single-device closure makes, plus
     the caller's read of its overflow flag:
 
         reads = δ sites + radix re-runs + 1
+
+    With ``n_shards`` it counts one rank's run of a mesh closure
+    (:func:`repro_torch.plan.mesh.compile_mesh_plan`) instead: every
+    global δ is a local δ, the exchange and a second local δ (the
+    exchange only when ``n_shards > 1``), the sdm sink is one local δ
+    after the per-map global δs (even for one map), the rmlmapper sink
+    two, and there is no ``+ 1``: the engine reads the flags after the
+    ranks have agreed on them, outside the closure.
 
     * **δ sites** — under the hash strategy each δ evaluation reads one
       0-d fallback flag (``relalg/ops.py``; the reference picks the
@@ -301,6 +311,15 @@ def expected_host_reads(plan, engine: Optional[str] = "rmlmapper",
     """
     if _resolve_dedup(dedup) == "lex":
         sites = 0
+    elif n_shards is not None:
+        per_global = 2 if n_shards > 1 else 1
+        distincts = {n for root in plan.emits() for n in iter_nodes(root)
+                     if isinstance(n, Distinct)}
+        sites = per_global * len(distincts)
+        if engine == "sdm":
+            sites += per_global * len(plan.emits()) + 1
+        else:
+            sites += 2
     else:
         distincts = {n for root in plan.emits() for n in iter_nodes(root)
                      if isinstance(n, Distinct)}
@@ -313,7 +332,7 @@ def expected_host_reads(plan, engine: Optional[str] = "rmlmapper",
                 sites += 1
     reruns = sum(n for (layout, cap, _k), n in (dedup_calls or {}).items()
                  if layout == "sorted" and cap >= RADIX_DEDUP_MIN_ROWS)
-    return sites + reruns + 1
+    return sites + reruns + (0 if n_shards is not None else 1)
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +446,11 @@ class _Recorder(TorchDispatchMode):
         name = str(func.overloadpacket)
         self.counts[name] += 1
         if func.namespace in _COLLECTIVE_NAMESPACES:
+            # c10d spells them alltoall_base_ / allgather_
+            plain = name.replace("alltoall", "all_to_all").replace(
+                "allgather", "all_gather")
             for key in COLLECTIVE_PRIMITIVES:
-                if key in name.replace("alltoall", "all_to_all"):
+                if key in plain:
                     self.collectives[key] += 1
                     break
             else:

@@ -36,10 +36,20 @@ class CachedPlan:
     counts: Dict[Node, int]      # plan-time row counts (exact or bound)
     caps: Dict[Node, int]        # plan-time buffer capacities
     fn: Callable                 # sources -> (kg, raw, overflowed), or
-    #                              (answer, overflowed) for a query
+    #                              (answer, overflowed) for a query, or
+    #                              (datas, counts) -> (kg shard, kg count,
+    #                              raw, overflowed, sink overflowed) on a
+    #                              mesh
     engine: str
     dedup: Optional[str]
     mode: str
+    # mesh entries only: the per-source shard-local block capacities, the
+    # sink δ's bucket slack, the per-⋈ exchange decisions, and whether the
+    # exchanges were sized hard-safe
+    cap_locals: Optional[Dict[str, int]] = None
+    sink_slack: float = 1.0
+    exchanges: Optional[Dict[Node, object]] = None
+    safe_exchange: bool = False
 
 
 class PlanCache:

@@ -29,16 +29,25 @@ without a card and without ``device="cpu"`` it raises
 
 Static verification (``EngineConfig.verify``, default ``"plan"``) works
 as in the reference: every optimizer rewrite is gated by its soundness
-contract and every annotated plan is verified before it is compiled;
-``"full"`` also audits the first execution of each new build
-(:func:`repro_torch.analysis.audit_closure`: host syncs against the counted
-reads the plan implies, no collectives, dtype stability); ``"off"`` skips
-all of it.
+contract and every annotated plan is verified before it is compiled
+(shard-locally on a mesh); ``"full"`` also audits the first execution of
+each new build (:func:`repro_torch.analysis.audit_closure`: host syncs
+against the counted reads the plan implies, collectives against the
+exchange plan, dtype stability); ``"off"`` skips all of it.
 
-The port runs one device and keeps no persistent plan store: the
-reference's ``mesh``/``mesh_axis``/``join_exchange``/``calibrate`` belong
-to the multi-GPU slice and ``plan_store`` to the plan-store slice
-(ROADMAP.md Queue 1 items 4 and 5).
+**Mesh sessions** (``mesh=``, a :class:`repro_torch.launch.mesh.Mesh`):
+SPMD, one process per shard, the same session in every rank. Every rank
+parses the same DIS, keeps its own row block of each source and runs the
+whole plan as one per-rank closure
+(:func:`repro_torch.plan.mesh.compile_mesh_plan`) with shard-local
+capacities (:func:`repro_torch.plan.annotate.annotate_local`); the cache
+key extends to the mesh, the per-source shard-local capacity buckets and
+the exchange knob, so recompile-on-overflow and bucket-crossing ingests
+work as on one device. After each call the ranks agree on the overflow
+flags and ``raw`` (one ``all_gather``), gather the KG shards and run one
+δ over them, so every rank returns the single-device KG. Queries on a
+mesh session and the persistent plan store are not ported (ROADMAP.md
+Queue 1 items 2 and 5).
 """
 from __future__ import annotations
 
@@ -50,20 +59,22 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from repro_torch.analysis import (AuditReport, audit_closure,
-                                  expected_host_reads, soundness_gate,
-                                  verify_plan, verify_query_plan)
+                                  expected_collectives, expected_host_reads,
+                                  soundness_gate, verify_plan,
+                                  verify_query_plan)
 from repro_torch.core.rdfizer import RDFizer
 from repro_torch.core.schema import DIS, TRIPLE_ATTRS
 from repro_torch.core.transform import TransformStats, plan_mapsdi
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.plan.annotate import annotate
+from repro_torch.plan.annotate import annotate, annotate_local
 from repro_torch.plan.compile import compile_plan, input_names
 from repro_torch.plan.explain import dump_plan, dump_root
 from repro_torch.plan.ir import fingerprint
 from repro_torch.plan.lower import LogicalPlan, lower
 from repro_torch.query import (KG_SOURCE, Query, annotate_query,
                                compile_query, lower_query, query_session_key)
-from repro_torch.relalg import Table, append_rows, bucket_cap, host_int
+from repro_torch.relalg import (Table, append_rows, bucket_cap, host_get,
+                                host_int)
 from repro_torch.relalg.table import pad_rows
 
 from .cache import PLAN_CACHE, CachedPlan
@@ -75,13 +86,9 @@ _UNSET = object()
 _WARNED_LEGACY: set = set()
 
 #: the reference's keywords for the slices not ported yet, with the value
-#: that means "no mesh / no store" (accepted) and the ROADMAP.md Queue 1
-#: item that ports the rest
+#: that means "no store" (accepted) and the ROADMAP.md Queue 1 item that
+#: ports the rest
 _NOT_PORTED = {
-    "mesh": (None, 4, "multi-GPU"),
-    "mesh_axis": ("data", 4, "multi-GPU"),
-    "join_exchange": ("auto", 4, "multi-GPU"),
-    "calibrate": (False, 4, "multi-GPU"),
     "plan_store": (None, 5, "plan-store"),
 }
 
@@ -142,22 +149,42 @@ class KGEngine:
         ``dedup`` (``"lex"`` | ``"hash"`` | None), ``optimize`` (run the
         Rule 1–3 + σ + CSE fixpoint), ``mode`` (``annotate`` mode,
         ``"exact"`` or ``"bound"``), ``slack`` (multiplier on annotated
-        counts before bucketing), ``jit`` (keyed, no-op in the eager port)
-        and ``verify`` (``"plan"`` | ``"full"`` | ``"off"``, the static
-        verification level). The canonical spelling.
-    engine, dedup, optimize, mode, slack, jit, verify
+        counts before bucketing), ``jit`` (keyed, no-op in the eager port),
+        ``verify`` (``"plan"`` | ``"full"`` | ``"off"``, the static
+        verification level) and the mesh fields below. The canonical
+        spelling.
+    engine, dedup, optimize, mode, slack, jit, verify, mesh, mesh_axis,
+    join_exchange, calibrate
         The reference's keyword spelling of the same fields: deprecated
         (one ``DeprecationWarning`` per combination per process), folded
         into an ``EngineConfig``; passing them together with ``config``
         raises ``ValueError``.
-    mesh, mesh_axis, join_exchange, calibrate, plan_store
-        The reference's multi-device and plan-store keywords. Their
-        single-device, storeless values (``None``, ``"data"``, ``"auto"``,
-        ``False``, ``None``) are accepted; any other value raises
-        ``NotImplementedError`` naming the ROADMAP.md item that ports it.
+    mesh / mesh_axis
+        A :class:`repro_torch.launch.mesh.Mesh` (made in every rank with
+        :func:`repro_torch.launch.mesh.make_mesh`) runs the session SPMD
+        over the ranks: see the module docstring. The session's device is
+        the mesh's.
+    join_exchange
+        ⋈ exchange strategy on a mesh (ignored without one): ``"gather"``
+        all-gathers the parent side, ``"repartition"`` hash-partitions
+        both sides by join key, ``"auto"`` (default) lets the per-join
+        cost model pick (:func:`repro_torch.plan.annotate
+        .join_exchange_cost`). All three give bit-identical KGs; the knob
+        is part of the plan-cache key.
+    calibrate
+        Measured-bandwidth cost model (ignored without a mesh): ``True``
+        times ``all_gather``/``all_to_all`` over the mesh once at session
+        start (memoized per process and mesh) and prices every ⋈ exchange
+        with the fit; a :class:`repro_torch.launch.mesh.Calibration`
+        injects known numbers; ``False`` keeps the static constants. The
+        calibration's signature joins the plan-cache key.
+    plan_store
+        The reference's persistent plan store: only ``None`` is accepted;
+        any other value raises ``NotImplementedError`` naming the
+        ROADMAP.md item that ports it.
     device
-        ``None`` (the default) runs on the CUDA card; ``"cpu"`` runs the
-        plain PyTorch path on the CPU.
+        ``None`` (the default) runs on the CUDA card (on a mesh: the
+        mesh's device); ``"cpu"`` runs the plain PyTorch path on the CPU.
     """
 
     def __init__(self, dis: DIS, engine: str = _UNSET,
@@ -199,7 +226,25 @@ class KGEngine:
                 _warn_legacy_kwargs(names)
             config = EngineConfig(**legacy)   # validates every field
         self.config = config
-        self.device: torch.device = resolve_device(device)
+        self.mesh, self.mesh_axis = config.mesh, config.mesh_axis
+        self.join_exchange = config.join_exchange
+        if self.mesh is None:
+            self.device: torch.device = resolve_device(device)
+        else:
+            self.device = self.mesh.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device!r} differs from the "
+                                 f"mesh's device {self.device}")
+        # measured-bandwidth cost model (mesh only): True times the mesh's
+        # collectives once (memoized per process and mesh); a Calibration
+        # injects known numbers; False keeps the static constants
+        self.calibration = None
+        if self.mesh is not None and config.calibrate is not False:
+            from repro_torch.launch.mesh import Calibration, calibrate_mesh
+            self.calibration = (config.calibrate
+                                if isinstance(config.calibrate, Calibration)
+                                else calibrate_mesh(self.mesh,
+                                                    self.mesh_axis))
         self.engine, self.dedup = config.engine, config.dedup
         self.optimize, self.mode = config.optimize, config.mode
         self.slack = config.slack
@@ -235,6 +280,23 @@ class KGEngine:
         self._ir_fp = fingerprint(self._plan.emits())
         self._emit_sig = _emitter_signature(self._emitter)
         self._plan_seconds = time.perf_counter() - t0
+        # mesh sessions keep each source's row block device-resident
+        # between runs, keyed on the source Table's identity (an ingest's
+        # append_rows replaces it, so it re-shards)
+        self._shard_cache: Dict[str, Tuple] = {}
+        self._scan_names_cache: Optional[Tuple[str, ...]] = None
+        self._mesh_static = None if self.mesh is None else (
+            self.mesh.key(), self.mesh_axis)
+        # sticky per-session escalation: once key or hash skew forced a
+        # safe-capacity rebuild, later builds start safe
+        self._safe_exchange = False
+        # mesh closure calls, and the collectives they ran by the count
+        # expected_collectives gives each call
+        self._mesh_calls = 0
+        self._mesh_collectives: Dict[str, int] = {"all_gather": 0,
+                                                   "all_to_all": 0}
+        if self.mesh is not None:
+            self._check_ranks_agree()
         self._have_plan = False     # a closure has been obtained (any way)
         self._builds = 0            # closures built by this session
         self._recompiles = 0        # builds beyond the session's first
@@ -283,18 +345,39 @@ class KGEngine:
         return self._recompiles
 
     def explain(self) -> str:
-        """Annotated plan tree over the session's current sources (exact
-        host-side annotation, one device); unless ``verify="off"`` it
-        carries the verifier's verdict and each node's ``cols=``."""
-        counts, caps = annotate(self._plan)
+        """Annotated plan tree over the session's current sources; unless
+        ``verify="off"`` it carries the verifier's verdict and each node's
+        ``cols=``. On a mesh session every ⋈ line also shows the exchange
+        decision and the estimated per-device wire bytes of both
+        strategies: once a closure has been built, the built entry's
+        counts, caps and exchanges (what the closure runs); before that,
+        a prediction with the session's mode, slack, bucketing and sticky
+        safe-exchange state."""
+        exchanges = None
+        if self.mesh is None:
+            counts, caps = annotate(self._plan)
+        else:
+            entry = self._last.get("entry") if self._last else None
+            if entry is not None and entry.exchanges is not None:
+                counts, caps = entry.counts, entry.caps
+                exchanges = entry.exchanges
+            else:
+                counts, caps, exchanges = annotate_local(
+                    self._plan, n_shards=self.n_shards,
+                    cap_locals=self._cap_locals(self.sources),
+                    mode=self.mode, slack=self.slack, cap_fn=bucket_cap,
+                    sources=self.sources, join_exchange=self.join_exchange,
+                    safe_exchange=self._safe_exchange,
+                    calibration=self.calibration)
         schemas = verdict = None
         if self.verify != "off":
             report = verify_plan(
                 self._plan, self.engine, counts=counts, caps=caps,
-                sources=self.sources, slack=self.slack,
-                check_canonical=self.optimize, check_cse=self.optimize)
+                sources=self.sources, shard_local=self.mesh is not None,
+                slack=self.slack, check_canonical=self.optimize,
+                check_cse=self.optimize)
             schemas, verdict = report.schemas, report.describe()
-        return dump_plan(self._plan, self.engine, counts, caps,
+        return dump_plan(self._plan, self.engine, counts, caps, exchanges,
                          schemas=schemas, verdict=verdict)
 
     def _source_sig(self, sources: Mapping[str, Table]) -> Tuple:
@@ -302,9 +385,60 @@ class KGEngine:
             (name, t.capacity, tuple(t.attrs), bucket_cap(host_int(t.count)))
             for name, t in sources.items()))
 
+    @property
+    def n_shards(self) -> int:
+        """Ranks along the mesh axis (1 without a mesh)."""
+        return 1 if self.mesh is None else int(self.mesh.shape[self.mesh_axis])
+
+    def _cap_locals(self, sources: Mapping[str, Table]) -> Dict[str, int]:
+        """Per-rank row-block capacity bucket per scanned source — part of
+        the mesh cache key (a source crossing its shard-local bucket gets
+        a freshly shaped closure)."""
+        n = self.n_shards
+        return {name: bucket_cap(-(-sources[name].capacity // n))
+                for name in self._scan_names}
+
+    @property
+    def _scan_names(self) -> Tuple[str, ...]:
+        """Source names the current plan scans (cached per plan)."""
+        if self._scan_names_cache is None:
+            from repro_torch.plan.mesh import plan_scans
+            self._scan_names_cache = tuple(sorted(plan_scans(self._plan)))
+        return self._scan_names_cache
+
+    def _mesh_sig(self, sources: Mapping[str, Table]) -> Optional[Tuple]:
+        """Mesh part of the cache key: the mesh's identity (static), the
+        per-source shard-local capacity buckets, the u16-packability of
+        the vocab (baked into every exchange's payload), the ⋈ exchange
+        knob and the calibration's signature."""
+        if self.mesh is None:
+            return None
+        cal_sig = (None if self.calibration is None
+                   else self.calibration.signature())
+        return self._mesh_static + (
+            tuple(sorted(self._cap_locals(sources).items())),
+            len(self._dis.vocab) < (1 << 16), self.join_exchange, cal_sig)
+
     def _key(self, sources: Mapping[str, Table]) -> Tuple:
         return (self._ir_fp, self._emit_sig) + self.config.cache_sig() + (
-            self._source_sig(sources),)
+            self._mesh_sig(sources), self._source_sig(sources))
+
+    def _check_ranks_agree(self) -> None:
+        """Every rank parsed the same DIS: the plan fingerprint and the
+        vocabulary size must agree across ranks (one ``all_gather``, at
+        session start, outside any audited call), else raise."""
+        import torch.distributed as dist
+        mine = torch.tensor([int(self._ir_fp[:15], 16), len(self._dis.vocab)],
+                            dtype=torch.int64, device=self.device)
+        group = self.mesh.group_for(self.mesh_axis)
+        got = [torch.empty_like(mine) for _ in range(self.n_shards)]
+        dist.all_gather(got, mine, group=group)
+        seen = {tuple(int(v) for v in host_get(t)) for t in got}
+        if len(seen) != 1:
+            raise RuntimeError(
+                "the ranks of the mesh hold different plans or vocabularies "
+                f"(fingerprint prefix, vocab size per rank: {sorted(seen)}); "
+                "every rank must parse the same DIS from the same inputs")
 
     def _rewrite_gate(self):
         """The optimizer's per-rewrite soundness hook (``None`` when
@@ -312,14 +446,15 @@ class KGEngine:
         return None if self.verify == "off" else soundness_gate
 
     def _verify_built(self, counts, caps, sources) -> None:
-        """Statically verify the annotated plan before it is compiled; a
-        failure raises :class:`repro_torch.analysis.PlanVerificationError`
-        (a malformed plan must never reach the device, let alone a KG)."""
+        """Statically verify the annotated plan before it is compiled
+        (shard-locally on a mesh); a failure raises
+        :class:`repro_torch.analysis.PlanVerificationError` (a malformed
+        plan must never reach the device, let alone a KG)."""
         if self.verify == "off":
             return
         verify_plan(self._plan, self.engine, counts=counts, caps=caps,
-                    sources=sources, slack=self.slack,
-                    check_canonical=self.optimize,
+                    sources=sources, shard_local=self.mesh is not None,
+                    slack=self.slack, check_canonical=self.optimize,
                     check_cse=self.optimize).raise_for_status()
         self._verify_plan_checks += 1
 
@@ -330,6 +465,7 @@ class KGEngine:
         self._plan = (plan_mapsdi(self._dis, gate=self._rewrite_gate())
                       if self.optimize else lower(self._dis))
         self._ir_fp = fingerprint(self._plan.emits())
+        self._scan_names_cache = None   # the new plan may scan differently
         self._plan_seconds += time.perf_counter() - t0
 
     def _slim_plan(self) -> LogicalPlan:
@@ -345,20 +481,44 @@ class KGEngine:
 
     def _build(self, key: Tuple, sources: Mapping[str, Table],
                mode: Optional[str] = None,
-               floor_caps: Optional[Mapping] = None) -> CachedPlan:
-        counts, caps = annotate(self._plan, mode=mode or self.mode,
-                                slack=self.slack, cap_fn=bucket_cap,
-                                sources=sources)
+               floor_caps: Optional[Mapping] = None,
+               sink_slack: float = 1.0,
+               safe_exchange: bool = False) -> CachedPlan:
+        mode = mode or self.mode
+        if self.mesh is None:
+            counts, caps = annotate(self._plan, mode=mode, slack=self.slack,
+                                    cap_fn=bucket_cap, sources=sources)
+            exchanges = cap_locals = None
+        else:
+            safe_exchange = safe_exchange or self._safe_exchange
+            self._safe_exchange = safe_exchange
+            cap_locals = self._cap_locals(sources)
+            counts, caps, exchanges = annotate_local(
+                self._plan, n_shards=self.n_shards, cap_locals=cap_locals,
+                mode=mode, slack=self.slack, cap_fn=bucket_cap,
+                sources=sources, join_exchange=self.join_exchange,
+                safe_exchange=safe_exchange, calibration=self.calibration)
         if floor_caps:  # growth must be monotone or overflow ping-pongs
             caps = {n: max(c, floor_caps.get(n, 0)) for n, c in caps.items()}
         self._verify_built(counts, caps, sources)
-        fn = compile_plan(self._slim_plan(), self._emitter,
-                          engine=self.engine, dedup=self.dedup, caps=caps,
-                          report_overflow=True)
-        entry = CachedPlan(key=key, plan=self._slim_plan(),
-                           emitter=self._emitter, counts=counts, caps=caps,
-                           fn=fn, engine=self.engine, dedup=self.dedup,
-                           mode=mode or self.mode)
+        plan = self._slim_plan()
+        if self.mesh is None:
+            fn = compile_plan(plan, self._emitter, engine=self.engine,
+                              dedup=self.dedup, caps=caps,
+                              report_overflow=True)
+        else:
+            from repro_torch.plan.mesh import compile_mesh_plan
+            fn = compile_mesh_plan(
+                plan, self._emitter, self.mesh, self.mesh_axis,
+                engine=self.engine, dedup=self.dedup, caps=caps,
+                cap_locals=cap_locals, sink_slack=sink_slack,
+                pack_u16=len(self._dis.vocab) < (1 << 16),
+                exchanges=exchanges, safe_exchange=safe_exchange)
+        entry = CachedPlan(key=key, plan=plan, emitter=self._emitter,
+                           counts=counts, caps=caps, fn=fn,
+                           engine=self.engine, dedup=self.dedup, mode=mode,
+                           cap_locals=cap_locals, sink_slack=sink_slack,
+                           exchanges=exchanges, safe_exchange=safe_exchange)
         PLAN_CACHE.put(key, entry)
         self._builds += 1
         if self._have_plan:
@@ -378,17 +538,18 @@ class KGEngine:
         return entry, hit
 
     # -- execution -----------------------------------------------------------
-    def _execute(self, step, sources, fresh: bool, **expect):
-        """``step(sources)``: one closure call plus the read of its
-        overflow flag. Under ``verify="full"`` the first execution of a
-        freshly built entry *is* the audited run (no extra execution), so
-        the session's device work and counted reads equal an ``"off"``
-        session's. ``expect`` holds the audit's expectations
+    def _execute(self, step, args, fresh: bool, **expect):
+        """``step(*args)``: one closure call (plus, on one device, the read
+        of its overflow flag). Under ``verify="full"`` the first execution
+        of a freshly built entry *is* the audited run (no extra
+        execution), so the session's device work and counted reads equal
+        an ``"off"`` session's. ``expect`` holds the audit's expectations
         (:func:`repro_torch.analysis.audit_closure`'s ``plan``/``engine``/
-        ``expected_counts`` and ``expected_host_reads``)."""
+        ``n_shards``/``exchanges``/``expected_counts`` and
+        ``expected_host_reads``)."""
         if not (fresh and self.verify == "full"):
-            return step(sources)
-        report = audit_closure(step, (sources,), single_device=True,
+            return step(*args)
+        report = audit_closure(step, args, single_device=self.mesh is None,
                                **expect)
         result, report.result = report.result, None
         self.last_audit = report
@@ -400,7 +561,7 @@ class KGEngine:
         def step(srcs):
             kg, raw, over = entry.fn(srcs)
             return kg, raw, host_int(over)
-        return self._execute(step, sources, fresh, plan=entry.plan,
+        return self._execute(step, (sources,), fresh, plan=entry.plan,
                              engine=self.engine,
                              expected_host_reads=functools.partial(
                                  expected_host_reads, entry.plan,
@@ -419,18 +580,21 @@ class KGEngine:
         entry, hit = self._ensure(sources)
         plan_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        kg, raw, over = self._run_entry(entry, sources, fresh=not hit)
-        if over:
-            # some buffer was truncated: re-annotate exactly against the
-            # *current* extension, grow caps monotonically, re-run — the
-            # one rebuild per capacity-bucket crossing
-            hit = False   # the hit did not actually serve this execution
-            entry = self._build(entry.key, sources, mode="exact",
-                                floor_caps=entry.caps)
-            kg, raw, over = self._run_entry(entry, sources, fresh=True)
-            if over:  # exact caps cannot under-size
-                raise RuntimeError("capacity overflow persisted after "
-                                   "rebuild — please report")
+        if self.mesh is not None:
+            kg, raw, entry, hit = self._run_mesh(entry, sources, hit)
+        else:
+            kg, raw, over = self._run_entry(entry, sources, fresh=not hit)
+            if over:
+                # some buffer was truncated: re-annotate exactly against
+                # the *current* extension, grow caps monotonically, re-run
+                # — the one rebuild per capacity-bucket crossing
+                hit = False   # the hit did not serve this execution
+                entry = self._build(entry.key, sources, mode="exact",
+                                    floor_caps=entry.caps)
+                kg, raw, over = self._run_entry(entry, sources, fresh=True)
+                if over:  # exact caps cannot under-size
+                    raise RuntimeError("capacity overflow persisted after "
+                                       "rebuild — please report")
         exec_s = time.perf_counter() - t1
         self._executions += 1
         self._last = {"entry": entry, "cache_hit": hit, "first": first,
@@ -481,7 +645,120 @@ class KGEngine:
         kg, raw = self.run()
         return kg, self._run_stats(kg, raw)
 
+    # -- fused distributed execution -----------------------------------------
+    def _shard_sources(self, sources: Mapping[str, Table],
+                       cap_locals: Mapping[str, int]) -> Tuple[Dict, Dict]:
+        """This rank's row block of each scanned source (the one place
+        source rows are distributed). Session sources are cached
+        device-side keyed on the Table object's identity, so a
+        replacement (an ingest's ``append_rows``) or a shard-bucket change
+        re-shards, while untouched sources reuse their blocks."""
+        from repro_torch.core.distributed import shard_table
+        own = sources is self.sources
+        datas: Dict[str, torch.Tensor] = {}
+        counts: Dict[str, torch.Tensor] = {}
+        for name in sorted(cap_locals):
+            cap, table = cap_locals[name], sources[name]
+            if own:
+                hit = self._shard_cache.get(name)
+                if hit is not None and hit[0] == cap and hit[1] is table:
+                    datas[name], counts[name] = hit[2], hit[3]
+                    continue
+            d, c, _ = shard_table(table, self.mesh, self.mesh_axis,
+                                  cap_local=cap)
+            if own:
+                self._shard_cache[name] = (cap, table, d, c)
+            datas[name], counts[name] = d, c
+        return datas, counts
+
+    def _run_mesh_entry(self, entry: CachedPlan, sources, fresh: bool):
+        """One call of the per-rank closure, then the ranks' agreement:
+        one ``all_gather`` of (raw, overflowed, sink overflowed, KG count)
+        and one counted host read of it, both after the (audited) call.
+        Returns ``(kg shard, KG counts per rank, raw, overflowed, sink
+        overflowed)`` with the last three summed / or-ed over ranks."""
+        import torch.distributed as dist
+        datas, counts = self._shard_sources(sources, entry.cap_locals)
+        self._mesh_calls += 1
+        for name, k in expected_collectives(
+                entry.plan, self.engine, self.n_shards,
+                entry.exchanges).items():
+            self._mesh_collectives[name] += k
+        kg_d, kg_c, raw, over, sink_over = self._execute(
+            entry.fn, (datas, counts), fresh, plan=entry.plan,
+            engine=self.engine, n_shards=self.n_shards,
+            exchanges=entry.exchanges,
+            expected_host_reads=functools.partial(
+                expected_host_reads, entry.plan, self.engine, self.dedup,
+                n_shards=self.n_shards))
+        mine = torch.stack([raw.to(torch.int32), over.to(torch.int32),
+                            sink_over.to(torch.int32),
+                            kg_c.to(torch.int32)])
+        got = [torch.empty_like(mine) for _ in range(self.n_shards)]
+        dist.all_gather(got, mine,
+                        group=self.mesh.group_for(self.mesh_axis))
+        agreed = host_get(torch.stack(got))          # [n_shards, 4]
+        return (kg_d, [int(c) for c in agreed[:, 3]], int(agreed[:, 0].sum()),
+                bool(agreed[:, 1].any()), bool(agreed[:, 2].any()))
+
+    def _run_mesh(self, entry: CachedPlan, sources: Mapping[str, Table],
+                  hit: bool):
+        """Execute the per-rank closure; rebuild on (shard-local)
+        capacity or exchange overflow (at most once, escalating to
+        ``safe_exchange``: exact global counts as post-exchange caps and
+        hard-safe exchange buckets are true bounds) or sink-δ bucket
+        overflow (at most once more, 4× the sink slack); every rank takes
+        the same branch, since the flags are agreed first. Then gather
+        the KG shards and run one δ over them, which puts the rows in the
+        single-device KG's order (both end in the same δ)."""
+        import torch.distributed as dist
+
+        from repro_torch.core.distributed import unshard_rows
+        from repro_torch.relalg import distinct
+        from repro_torch.relalg.table import round_cap
+        kg_d, kg_counts, raw, over, sink_over = self._run_mesh_entry(
+            entry, sources, fresh=not hit)
+        for _ in range(2):   # ≤1 capacity recompile + ≤1 sink-slack growth
+            if not (over or sink_over):
+                break
+            hit = False   # the hit did not actually serve this execution
+            # floors are the current entry's caps (growth must be
+            # monotone), and a sink-only rebuild keeps the mode a
+            # capacity rebuild escalated to
+            entry = self._build(
+                entry.key, sources, mode="exact" if over else entry.mode,
+                floor_caps=entry.caps,
+                sink_slack=entry.sink_slack * (4.0 if sink_over else 1.0),
+                safe_exchange=over or entry.safe_exchange)
+            kg_d, kg_counts, raw, over, sink_over = self._run_mesh_entry(
+                entry, sources, fresh=True)
+        if over:   # exact shard-local caps cannot under-size
+            raise RuntimeError("mesh capacity overflow persisted after "
+                               "recompile — please report")
+        if sink_over:
+            raise RuntimeError("distributed δ bucket overflow at "
+                               f"slack={entry.sink_slack:g}")
+        # the final KG: every rank's shard, then one δ
+        shards = [torch.empty_like(kg_d) for _ in range(self.n_shards)]
+        dist.all_gather(shards, kg_d.contiguous(),
+                        group=self.mesh.group_for(self.mesh_axis))
+        rows = unshard_rows(torch.cat(shards), kg_counts, kg_d.shape[0])
+        total = rows.shape[0]
+        kg = distinct(Table(data=pad_rows(rows, round_cap(total)),
+                            count=torch.full((), total, dtype=torch.int32,
+                                             device=self.device),
+                            attrs=TRIPLE_ATTRS), dedup=self.dedup)
+        raw_t = torch.full((), raw, dtype=torch.int32, device=self.device)
+        return kg, raw_t, entry, hit
+
     # -- queries -------------------------------------------------------------
+    def _no_mesh_queries(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"KGEngine.{what} on a mesh session is not ported yet: it "
+                "belongs to the port's multi-GPU query slice (ROADMAP.md "
+                "Queue 1 item 2)")
+
     def _kg_table(self, kg: Optional[Table]) -> Table:
         """Resolve + bucket the KG table a query reads: the session KG by
         default (materialized on first use), an explicit ``kg=`` override
@@ -536,7 +813,7 @@ class KGEngine:
         def step(srcs):
             result, over = entry.fn(srcs)
             return result, host_int(over)
-        return self._execute(step, sources, fresh,
+        return self._execute(step, (sources,), fresh,
                              expected_counts={"all_gather": 0,
                                               "all_to_all": 0},
                              expected_host_reads=functools.partial(
@@ -559,6 +836,7 @@ class KGEngine:
         ``kg`` defaults to the session KG (materialized via :meth:`run` on
         first use); pass an explicit coded triple table to query something
         else (it shares the session's vocab codes by construction)."""
+        self._no_mesh_queries("query")
         t0 = time.perf_counter()
         table = self._kg_table(kg)
         qplan = lower_query(q)
@@ -594,6 +872,7 @@ class KGEngine:
         :meth:`explain`: per-node rows/caps from the session's annotation
         mode over the KG the query would read, with the verifier's verdict
         and ``cols=`` unless ``verify="off"``."""
+        self._no_mesh_queries("explain_query")
         table = self._kg_table(kg)
         qplan = lower_query(q)
         sources = {KG_SOURCE: table}
@@ -653,6 +932,19 @@ class KGEngine:
         out = {
             "engine": self.engine, "dedup": self.dedup, "mode": self.mode,
             "slack": self.slack, "optimize": self.optimize,
+            "join_exchange": self.join_exchange,
+            "mesh": (None if self.mesh is None else
+                     dict(self.mesh.describe(), axis=self.mesh_axis,
+                          calls=self._mesh_calls,
+                          collectives=dict(self._mesh_collectives))),
+            "cost_model": ("static" if self.calibration is None
+                           else self.calibration.source),
+            "calibration": (None if self.calibration is None else {
+                "all_gather_bw": self.calibration.all_gather_bw,
+                "all_to_all_bw": self.calibration.all_to_all_bw,
+                "launch_s": self.calibration.launch_s,
+                "source": self.calibration.source,
+            }),
             "verify": {"mode": self.verify,
                        "plan_checks": self._verify_plan_checks,
                        "audits": self._verify_audits,

@@ -9,10 +9,14 @@ sources and flags, so an edited source is never served a stale build.
 
 Nothing here runs at import time: importing the port on a machine
 without ``nvcc`` or a card is fine, and only a kernel launch builds.
+Builds take a file lock in the build directory, so the ranks of a mesh
+that reach their first launch together run ``nvcc`` once between them
+(the others wait, then load the finished library).
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -101,6 +105,19 @@ def build() -> Path:
     t0 = time.perf_counter()
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)   # released when the file closes
+        if lib_path.exists():              # another process built it
+            last_build_seconds = time.perf_counter() - t0
+            return lib_path
+        _compile(nvcc, lib_path)
+    last_build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def _compile(nvcc: str, lib_path: Path) -> None:
+    """Compile every source (one ``nvcc`` each, all started together) and
+    link them into ``lib_path``."""
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         objs = []
@@ -126,9 +143,7 @@ def build() -> Path:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n$ {' '.join(link)}\n"
                                f"{res.stdout}")
-        os.replace(tmp_lib, lib_path)   # atomic: concurrent builds are safe
-    last_build_seconds = time.perf_counter() - t0
-    return lib_path
+        os.replace(tmp_lib, lib_path)   # atomic: readers never see half
 
 
 def lib() -> ctypes.CDLL:

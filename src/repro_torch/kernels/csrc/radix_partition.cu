@@ -1,6 +1,8 @@
 // Stable radix partition of the first `count` rows of data[N, K] int32 into
 // n_buckets x cap_bucket row slots by a hash of the key columns:
-//   target = h & (nb - 1)          (exchange mode, shift == 0)
+//   target = h % nb                (exchange mode, shift == 0; any nb in
+//                                   [1, 1024], a mask when nb is a power
+//                                   of two)
 //   target = h >> shift            (order-preserving mode, shift = 32 - log2 nb)
 // Rows keep their original relative order inside a bucket. A row is
 // written only if its slot is below cap_bucket; the unused slots of every
@@ -101,7 +103,11 @@ __device__ __forceinline__ int row_target(const int32_t* row, int nb,
     h = (h ^ v) * MAPSDI_FNV_PRIME;
   }
   h = mapsdi_fmix32(h);
-  return shift ? (int)(h >> shift) : (int)(h & (uint32_t)(nb - 1));
+  if (shift) return (int)(h >> shift);
+  // exchange mode: one bucket a shard, so any count (a mask for a power
+  // of two, the common case)
+  return (nb & (nb - 1)) ? (int)(h % (uint32_t)nb)
+                         : (int)(h & (uint32_t)(nb - 1));
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -134,7 +140,9 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
 }
 
 // Shared memory of one block, in this order (8-byte arrays first):
-//   base  int64  [nb]      output word of grouped position 0 of the bucket
+//   base  int64  [nb, rounded up to even] output word of grouped position
+//                          0 of the bucket (even, so the tile after it
+//                          starts on a 16-byte boundary for cp.async)
 //   tile  int32  [R * K]   the staged rows (staged tiles only)
 //   gp    uint32 [R]       grouped order: source row | bucket << 16
 //   hist  int32  [nb]      the tile's rows per bucket
@@ -143,9 +151,11 @@ __device__ __forceinline__ void store_status(unsigned long long* p,
 //   wcnt  uint32 [2][kWarps][nb]  per round (by parity), round << 16 | a
 //                          warp's count, then its exclusive prefix
 //   scan  int32  [kWarps]
+__host__ __device__ inline int base_words(int nb) { return (nb + 1) & ~1; }
+
 __host__ __device__ inline size_t smem_bytes(int rows, bool staged, int k,
                                              int nb) {
-  return (size_t)nb * 8 + (staged ? (size_t)rows * k * 4 : 0) +
+  return (size_t)base_words(nb) * 8 + (staged ? (size_t)rows * k * 4 : 0) +
          (size_t)rows * 4 + (size_t)nb * 12 + (size_t)2 * kWarps * nb * 4 +
          kWarps * 4;
 }
@@ -248,7 +258,7 @@ rp_tiles(const int32_t* __restrict__ x, const int32_t* __restrict__ count,
   constexpr int kRounds = (R + kThreads - 1) / kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   long long* base = reinterpret_cast<long long*>(smem);
-  int32_t* tile = reinterpret_cast<int32_t*>(base + nb);
+  int32_t* tile = reinterpret_cast<int32_t*>(base + base_words(nb));
   uint32_t* gp = reinterpret_cast<uint32_t*>(tile + (STAGED ? R * k : 0));
   int* hist = reinterpret_cast<int*>(gp + R);
   int* start = hist + nb;
@@ -333,8 +343,9 @@ rp_tiles(const int32_t* __restrict__ x, const int32_t* __restrict__ count,
           (uint32_t)(rd * kThreads + tid) | ((uint32_t)tg[rd] << 16);
 
   // groups of g lanes, one bucket at a time, each lane one lower tile of
-  // the window: g = 32 for nb <= 8, 1 from nb = 256 up
-  const int g = min(32, max(1, kThreads / nb));
+  // the window: g = 32 for nb <= 8, 1 from nb = 256 up; rounded down to a
+  // power of two, since the groups split the warp evenly
+  const int g = 1 << (31 - __clz(min(32, max(1, kThreads / nb))));
   const int li = lane & (g - 1);
   const unsigned gshift = lane & ~(g - 1);
   const unsigned gbits = g == 32 ? kFull : (1u << g) - 1u;
@@ -410,7 +421,8 @@ int launch_tiles(int tiles, size_t smem, const int32_t* x,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const int n_fin = max(nb, kFinishBlocks);
+  // a multiple of nb: each bucket gets the same share of finishing blocks
+  const int n_fin = (max(nb, kFinishBlocks) + nb - 1) / nb * nb;
   rp_tiles<R, STAGED><<<(unsigned)(tiles + n_fin), kThreads, smem, s>>>(
       x, count, n, k, nb, cb, shift, keys, tiles, n_fin, scratch, out,
       counts, overflow);
@@ -433,8 +445,11 @@ extern "C" int mapsdi_radix_partition(
     int device, void* stream) {
   cudaSetDevice(device);
   const int nb = n_buckets;
-  if (n < 1 || k < 1 || cap_bucket < 1 || nb < 2 || nb > 1024 ||
-      (nb & (nb - 1)) || n_key < 1 || n_key > 16 || shift < 0 || shift > 31)
+  // exchange mode takes any bucket count in [1, 1024]; the
+  // order-preserving mode's top-bits target needs a power of two >= 2
+  if (n < 1 || k < 1 || cap_bucket < 1 || nb < 1 || nb > 1024 ||
+      n_key < 1 || n_key > 16 || shift < 0 || shift > 31 ||
+      (shift && (nb < 2 || (nb & (nb - 1)) || shift != 32 - __builtin_ctz(nb))))
     return (int)cudaErrorInvalidValue;
   const bool staged_rows = tile_rows >= 32 && tile_rows <= 1024 &&
                            !(tile_rows & (tile_rows - 1));

@@ -22,8 +22,7 @@ from .ref import bucket_shift
 TILE_ROWS = (1024, 512, 256, 128, 64, 32)
 #: shared memory a staged tile of R rows x K int32 may take
 STAGE_BYTES = 40 * 1024
-#: the exchange-mode modulo is a mask, and the kernel's shared tables hold
-#: up to 8 warps x n_buckets counts
+#: the kernel's shared tables hold up to 8 warps x n_buckets counts
 MAX_BUCKETS = 1024
 #: key columns are passed packed, one byte each, in two 64-bit words
 MAX_KEY_COLS = 16
@@ -43,18 +42,21 @@ def tiles(k: int) -> Tuple[int, bool]:
 
 
 def kernel_feasible(n: int, k: int, n_buckets: int, cap_bucket: int,
-                    key_cols: Optional[Tuple[int, ...]] = None) -> bool:
+                    key_cols: Optional[Tuple[int, ...]] = None,
+                    order_preserving: bool = False) -> bool:
     """True iff the CUDA kernel takes this shape.
 
-    A power-of-two bucket count in [2, MAX_BUCKETS], at most MAX_KEY_COLS
-    key columns of index <= MAX_KEY_COL_INDEX, and row and slot indices
-    that fit int32.
+    A bucket count in [1, MAX_BUCKETS] (exchange mode takes any count: one
+    bucket per shard; the order-preserving mode's top-bits target needs a
+    power of two of at least 2), at most MAX_KEY_COLS key columns of index
+    <= MAX_KEY_COL_INDEX, and row and slot indices that fit int32.
     """
     cols = tuple(range(k)) if key_cols is None else tuple(key_cols)
     if n < 1 or k < 1 or cap_bucket < 1:
         return False
-    if n_buckets < 2 or n_buckets & (n_buckets - 1) or \
-            n_buckets > MAX_BUCKETS:
+    if n_buckets < 1 or n_buckets > MAX_BUCKETS:
+        return False
+    if order_preserving and (n_buckets < 2 or n_buckets & (n_buckets - 1)):
         return False
     if not 1 <= len(cols) <= MAX_KEY_COLS or \
             any(c < 0 or c >= k or c > MAX_KEY_COL_INDEX for c in cols):
@@ -82,7 +84,8 @@ def radix_partition_kernel(data: torch.Tensor, count, *, n_buckets: int,
     outside :func:`kernel_feasible`."""
     check_rows(data, "radix_partition")
     n, k = data.shape
-    if not kernel_feasible(n, k, n_buckets, cap_bucket, key_cols):
+    if not kernel_feasible(n, k, n_buckets, cap_bucket, key_cols,
+                           order_preserving):
         raise ValueError(
             f"radix_partition kernel does not take n={n} k={k} "
             f"n_buckets={n_buckets} cap_bucket={cap_bucket} "

@@ -45,6 +45,9 @@ COLLIDING_PAIRS = [
     ([111516, 1026830], [628226, 432961]),
     ([225467, 153997], [397535, 951855]),
 ]
+#: exchange-mode bucket counts checked beside the power-of-two ones: a
+#: mesh's exchanges take one bucket per shard, for any shard count
+EXCHANGE_BUCKETS = (1, 3, 4, 6)
 
 
 @dataclasses.dataclass
@@ -105,7 +108,7 @@ def largest_staged_k() -> int:
 
 
 def _int_inputs(n_main: int, ks, path_shapes: Sequence[Tuple[int, int]],
-                seed: int):
+                seed: int, exchange_shapes: Sequence[Tuple] = ()):
     """The integer kernels' inputs: ``(label, rows)`` pairs for the row
     hash and for the neighbour flags, and every radix partition check.
 
@@ -119,7 +122,11 @@ def _int_inputs(n_main: int, ks, path_shapes: Sequence[Tuple[int, int]],
     radix kernel's tiles (``kernel.tiles``): N = one tile + 1, ``count``
     on a tile boundary, every row in one bucket across many tiles, 1024
     buckets in exchange mode, the largest K that is staged and the first
-    that is not, and an input view off a 16-byte boundary."""
+    that is not, and an input view off a 16-byte boundary. Then exchange
+    mode at :data:`EXCHANGE_BUCKETS` buckets on a key-column subset (and
+    one overflowing), and each ``(N, K, n_buckets, cap_bucket, key_cols)``
+    of ``exchange_shapes`` (the shapes a mesh run's exchanges handed the
+    kernel) on random rows, ``count`` a fifth below N."""
     rng = np.random.default_rng(seed)
     hashes: List[Tuple[str, np.ndarray]] = []
     flags: List[Tuple[str, np.ndarray]] = []
@@ -200,15 +207,34 @@ def _int_inputs(n_main: int, ks, path_shapes: Sequence[Tuple[int, int]],
     radix.append(RadixSpec(f"view off a 16-byte boundary N={odd} K={k}", x,
                            odd - 5, nb, _radix_dedup_cap(odd, nb),
                            offset=True))
+    # exchange mode at the bucket counts of 1-, 3-, 4- and 6-rank meshes
+    # (one bucket a shard, so any count) on a key-column subset, one of
+    # them overflowing
+    x = _rows(rng, odd, k, hi=n_main // 8)
+    for nb_x in EXCHANGE_BUCKETS:
+        radix.append(RadixSpec(
+            f"N={odd} K={k} nb={nb_x} exchange key_cols=(2, 0)", x, odd - 9,
+            nb_x, _radix_dedup_cap(odd, nb_x), key_cols=(2, 0),
+            order_preserving=False))
+    radix.append(RadixSpec(
+        f"N={odd} K={k} nb=3 exchange key_cols=(2,) (overflow)", x, odd,
+        3, odd // 4, key_cols=(2,), order_preserving=False))
+    # the shapes a mesh run's exchanges handed the kernel
+    for n, kk, nb_x, cb, cols in exchange_shapes:
+        x = _rows(rng, n, kk, hi=max(2, n // 2))
+        radix.append(RadixSpec(
+            f"mesh N={n} K={kk} nb={nb_x} cap={cb} key_cols={cols}", x,
+            n - n // 5, nb_x, cb, key_cols=cols, order_preserving=False))
     return hashes, flags, radix
 
 
 def radix_specs(n_main: int, ks=(5, 10),
                 path_shapes: Sequence[Tuple[int, int]] = (),
-                seed: int = 0) -> List[RadixSpec]:
+                seed: int = 0,
+                exchange_shapes: Sequence[Tuple] = ()) -> List[RadixSpec]:
     """Every radix partition check of :func:`cases` with the same
     arguments, on the same inputs (see ``_int_inputs``)."""
-    return _int_inputs(n_main, ks, path_shapes, seed)[2]
+    return _int_inputs(n_main, ks, path_shapes, seed, exchange_shapes)[2]
 
 
 def offset_view(x: torch.Tensor) -> torch.Tensor:
@@ -223,10 +249,12 @@ def offset_view(x: torch.Tensor) -> torch.Tensor:
 
 def cases(device: torch.device, n_main: int, ks=(5, 10),
           path_shapes: Sequence[Tuple[int, int]] = (),
-          seed: int = 0) -> List[Case]:
+          seed: int = 0,
+          exchange_shapes: Sequence[Tuple] = ()) -> List[Case]:
     """Every integer kernel at the main path's shapes and at the edge
     cases of ``_int_inputs``."""
-    hashes, flags, radix = _int_inputs(n_main, ks, path_shapes, seed)
+    hashes, flags, radix = _int_inputs(n_main, ks, path_shapes, seed,
+                                       exchange_shapes)
     out: List[Case] = []
 
     def dev(a: np.ndarray) -> torch.Tensor:

@@ -1,0 +1,421 @@
+"""Meshes of ranks on ``torch.distributed``, and the measured-bandwidth
+collective calibration.
+
+The reference builds one ``jax.sharding.Mesh`` over the devices of one
+process and runs each plan as one ``shard_map``. The port runs SPMD: one
+process per shard, the same program in every rank, and the collectives
+of ``torch.distributed`` between them. A :class:`Mesh` is one rank's view
+of that: the axis sizes, this rank, its device, the backend and the
+process group.
+
+The backend follows the placement: NCCL when each rank has a card of its
+own, gloo when ranks share a card (NCCL refuses two ranks on one GPU;
+gloo stages CUDA tensors through the host) and on the CPU.
+
+``make_mesh`` inside a rank (see :func:`launch_ranks`) takes the ranks'
+process group; a one-rank mesh outside any rank runs in the calling
+process, on a one-rank gloo group created once per process and reused.
+Nothing here touches ``torch.distributed`` at import time.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import pickle
+import sys
+import tempfile
+import threading
+import time
+import traceback
+from datetime import timedelta
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass(eq=False)
+class Mesh:
+    """One rank's view of a mesh of ranks.
+
+    ``shape`` maps each axis name to its size, so ``mesh.shape[axis]``
+    and ``tuple(mesh.shape)`` read as on the reference's mesh. Exchanges
+    run over an axis that spans every rank (:meth:`group_for`)."""
+
+    shape: Dict[str, int]
+    axis_names: Tuple[str, ...]
+    rank: int
+    device: torch.device
+    backend: str
+    group: object
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    def group_for(self, axis: str):
+        """The process group of ``axis``: the mesh's group, when the axis
+        spans every rank (the other axes have size 1)."""
+        if self.shape[axis] != self.size:
+            raise ValueError(f"axis {axis!r} of mesh {self.shape} does not "
+                             "span every rank; the port exchanges only "
+                             "over such an axis")
+        return self.group
+
+    def key(self) -> Tuple:
+        """Identity of this mesh in cache keys: axes, this rank, the
+        device and the backend (a group's ranks are 0..size-1)."""
+        return (tuple(self.shape.items()), self.rank, str(self.device),
+                self.backend)
+
+    def describe(self) -> Dict[str, object]:
+        return {"shape": dict(self.shape), "rank": self.rank,
+                "device": str(self.device), "backend": self.backend}
+
+
+def backend_for(device_type: str, n_ranks: int) -> str:
+    """``"nccl"`` when every rank can have a CUDA card of its own, else
+    ``"gloo"`` (shared cards, the CPU)."""
+    if device_type == "cuda" and dist.is_nccl_available() and \
+            torch.cuda.device_count() >= n_ranks:
+        return "nccl"
+    return "gloo"
+
+
+def _one_rank_group() -> None:
+    """The in-process one-rank group: ``init_process_group`` runs once per
+    process, so it is created on first use and reused."""
+    if not dist.is_initialized():
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device: DeviceLike = None) -> Mesh:
+    """A mesh of ``prod(shape)`` ranks with the named ``axes``.
+
+    Inside a rank of :func:`launch_ranks` (or any initialized process
+    group of that size) it takes the group; a one-rank mesh elsewhere
+    runs in this process. ``device`` defaults to CUDA (the rank's card),
+    as every entry point of the port does; ``"cpu"`` for the tests."""
+    shape = tuple(int(s) for s in shape)
+    axes = tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"shape {shape} and axes {axes} differ in length")
+    n = math.prod(shape)
+    dev = resolve_device(device)
+    if not dist.is_initialized():
+        if n != 1:
+            raise ValueError(f"a {n}-rank mesh needs {n} processes: start "
+                             "them with launch_ranks")
+        _one_rank_group()
+    world = dist.get_world_size()
+    if world != n:
+        raise ValueError(f"need {n} ranks, the process group has {world}")
+    group = dist.group.WORLD
+    return Mesh(shape=dict(zip(axes, shape)), axis_names=axes,
+                rank=dist.get_rank(), device=dev,
+                backend=str(dist.get_backend(group)), group=group)
+
+
+def make_local_mesh(model: int = 1, data: Optional[int] = None,
+                    device: DeviceLike = None) -> Mesh:
+    """A ``(data, model)`` mesh over the ranks that exist (one, outside
+    :func:`launch_ranks`)."""
+    n = dist.get_world_size() if dist.is_initialized() else 1
+    data = data if data is not None else max(1, n // model)
+    return make_mesh((data, model), ("data", "model"), device=device)
+
+
+# ---------------------------------------------------------------------------
+# spawning ranks
+# ---------------------------------------------------------------------------
+
+#: starting ranks sets ``PYTHONHASHSEED`` in this process's environment for
+#: the spawned interpreters; groups started from several threads take turns
+_SPAWN_LOCK = threading.Lock()
+
+
+class RankError(RuntimeError):
+    """A rank raised (the message carries its traceback), or the group
+    outlived its timeout (``rank`` is then ``None``)."""
+
+    def __init__(self, rank: Optional[int], text: str):
+        super().__init__(text if rank is None
+                         else f"rank {rank} failed:\n{text}")
+        self.rank = rank
+
+
+def _rank_main(fn, args, rank: int, n: int, store_path: str,
+               device_type: str, backend: str, timeout: float,
+               out_path: str) -> None:
+    try:
+        if device_type == "cuda":
+            torch.cuda.set_device(rank % torch.cuda.device_count())
+        else:   # CPU ranks are test-sized; n ranks must not oversubscribe
+            torch.set_num_threads(1)
+        dist.init_process_group(
+            backend, store=dist.FileStore(store_path, n), rank=rank,
+            world_size=n, timeout=timedelta(seconds=timeout))
+        result = fn(*args)
+        # no rank drops its links while a peer is still in the last
+        # collective
+        dist.barrier()
+        payload = pickle.dumps(("ok", result))
+    except BaseException as e:   # noqa: BLE001 - reported to the parent
+        text = traceback.format_exc()
+        try:
+            payload = pickle.dumps(("error", text, e))
+        except Exception:        # an exception that does not pickle
+            payload = pickle.dumps(("error", text, None))
+        with open(out_path, "wb") as f:
+            f.write(payload)
+        os._exit(1)              # never wait on peers that may be hung
+    with open(out_path, "wb") as f:
+        f.write(payload)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    # skip the interpreter's teardown: the group's threads and the card's
+    # context need no orderly exit, and a teardown fault after the result
+    # is written must not read as the rank's failure
+    os._exit(0)
+
+
+def launch_ranks(fn: Callable, n: int, *, device: DeviceLike = None,
+                 timeout: float = 60.0, args: Tuple = (),
+                 backend: Optional[str] = None) -> List[object]:
+    """Run ``fn(*args)`` in ``n`` spawned ranks and return their results
+    (rank order).
+
+    Each rank joins one process group through a ``FileStore`` in a
+    temporary directory, with ``timeout`` seconds for each collective; on
+    CUDA rank ``r`` takes card ``r % device_count``. ``backend`` defaults
+    to :func:`backend_for`. ``timeout`` also bounds the whole group: if a
+    rank raises, or the group outlives it, every rank is terminated and
+    the caller gets a :class:`RankError` (chained to the rank's own
+    exception when it pickles), so a failed rank never leaves the others
+    hanging. ``fn`` must be importable by the spawned interpreters (a
+    module-level function). The ranks share the parent's hash seed
+    (``PYTHONHASHSEED``, 0 unless the caller set one), so any iteration
+    over a set of strings is the same in every rank."""
+    import torch.multiprocessing as mp
+    dev_type = resolve_device(device).type
+    backend = backend or backend_for(dev_type, n)
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="mapsdi_ranks_") as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.pkl") for r in range(n)]
+        procs = [ctx.Process(target=_rank_main, daemon=True, args=(
+            fn, args, r, n, os.path.join(tmp, "store"), dev_type, backend,
+            timeout, outs[r])) for r in range(n)]
+        with _SPAWN_LOCK:
+            seed = os.environ.get("PYTHONHASHSEED")
+            os.environ["PYTHONHASHSEED"] = seed or "0"
+            try:
+                for p in procs:
+                    p.start()
+            finally:
+                if seed is None:
+                    del os.environ["PYTHONHASHSEED"]
+                else:
+                    os.environ["PYTHONHASHSEED"] = seed
+        deadline = time.monotonic() + timeout
+        failed: Optional[int] = None
+        try:
+            while True:
+                codes = [p.exitcode for p in procs]
+                bad = [r for r, c in enumerate(codes) if c not in (None, 0)]
+                if bad:
+                    failed = bad[0]
+                    break
+                if all(c == 0 for c in codes):
+                    break
+                if time.monotonic() > deadline:
+                    raise RankError(
+                        None, f"the {n} ranks outlived their {timeout} s "
+                        "timeout (a hang?); every rank was terminated")
+                time.sleep(0.05)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.terminate()
+            for p in procs:
+                p.join(5)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        if failed is not None:
+            # a rank's failure makes its peers' collectives fail too: the
+            # first report written is the cause
+            reported = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0)
+                        and os.path.exists(outs[r])]
+            if reported:
+                failed = min(reported,
+                             key=lambda r: os.stat(outs[r]).st_mtime_ns)
+            try:
+                with open(outs[failed], "rb") as f:
+                    _, text, exc = pickle.load(f)
+            except (OSError, pickle.UnpicklingError, EOFError):
+                text, exc = (f"exit code {procs[failed].exitcode} and no "
+                             "report (killed?)"), None
+            raise RankError(failed, text) from exc
+        results = []
+        for path in outs:
+            with open(path, "rb") as f:
+                results.append(pickle.load(f)[1])
+        return results
+
+
+# ---------------------------------------------------------------------------
+# the cost model's constants and the measured calibration
+# ---------------------------------------------------------------------------
+
+#: NVLink 4 of the H100 SXM: 900 GB/s per GPU in both directions together
+#: (NVIDIA's data sheet), so 450 GB/s leaving one card — the cost model
+#: counts the bytes that leave one shard. A data-sheet number; no NVLink
+#: peer exists on a one-card machine to measure it.
+NVLINK_BW = 450e9
+
+
+@dataclasses.dataclass(frozen=True)
+class Calibration:
+    """Per-collective bandwidth model ``t = launch_s + wire_bytes / bw``.
+
+    ``source`` records provenance: ``"static"`` is the data-sheet link
+    rate and the measured launch constant (the cost model's default),
+    ``"measured"`` a fit to microbenchmarks of the live mesh's
+    collectives (:func:`measure_collective_bandwidth`). The cost model
+    (:func:`repro_torch.plan.annotate.join_exchange_cost`) treats the two
+    alike; only the numbers and the plan-cache signature differ."""
+    all_gather_bw: float        # bytes/s of per-shard wire bytes
+    all_to_all_bw: float        # bytes/s of per-shard wire bytes
+    launch_s: float             # fixed per-collective launch cost
+    source: str = "static"
+
+    def signature(self) -> Tuple:
+        """Hashable tag for plan-cache keys: static calibrations share one
+        tag; measured ones carry their numbers, so plans costed under
+        different link speeds never collide."""
+        if self.source == "static":
+            return ("static",)
+        return (self.source, round(self.all_gather_bw),
+                round(self.all_to_all_bw), round(self.launch_s, 9))
+
+
+def static_calibration() -> Calibration:
+    """The cost model's default constants as a :class:`Calibration`."""
+    from repro_torch.plan.annotate import COLLECTIVE_LAUNCH_S
+    return Calibration(all_gather_bw=NVLINK_BW, all_to_all_bw=NVLINK_BW,
+                       launch_s=COLLECTIVE_LAUNCH_S, source="static")
+
+
+def _fit_line(wire_bytes: Sequence[float], seconds: Sequence[float]
+              ) -> Tuple[float, float]:
+    """Least-squares ``t = launch + bytes/bw`` -> (bw, launch)."""
+    slope, intercept = np.polyfit(np.asarray(wire_bytes, dtype=np.float64),
+                                  np.asarray(seconds, dtype=np.float64), 1)
+    if not np.isfinite(slope) or slope <= 0.0:
+        return float("nan"), float("nan")
+    return 1.0 / float(slope), max(float(intercept), 0.0)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _best_seconds(mesh: Mesh, call, repeats: int) -> float:
+    """This rank's best time of ``call()`` over ``repeats`` trials, each
+    started together on every rank (a barrier) and ended by a device
+    sync."""
+    call()                                   # warm
+    _sync(mesh.device)
+    best = float("inf")
+    for _ in range(repeats):
+        dist.barrier(group=mesh.group)
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        call()
+        _sync(mesh.device)
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
+#: per-shard payloads of the calibration fit, in KiB. They span 512x so
+#: that wire time, not the launch, sets the slope: gloo ranks sharing a
+#: card stage every call through the host and take milliseconds to launch,
+#: which three payloads of at most 1 MiB could not tell from timer noise
+#: (the slope came out non-positive and the fit fell back to static).
+CALIBRATION_PAYLOAD_KIB = (64, 2048, 32768)
+CALIBRATION_REPEATS = 5
+
+
+def measure_collective_bandwidth(mesh: Mesh, axis: str, *,
+                                 payload_kib: Sequence[int] =
+                                 CALIBRATION_PAYLOAD_KIB,
+                                 repeats: int = CALIBRATION_REPEATS
+                                 ) -> Calibration:
+    """Time ``all_gather`` / ``all_to_all`` over ``axis`` and fit the
+    two-parameter model ``t = launch + wire_bytes / bw``.
+
+    Wire bytes follow the cost model's convention — bytes leaving one
+    shard: ``(n-1) · shard_bytes`` for all_gather, ``(n-1)/n ·
+    shard_bytes`` for all_to_all. Every rank times the same calls and the
+    ranks keep the slowest rank's time of each (one ``all_reduce``), so
+    every rank fits the same numbers and prices its plans alike.
+    Degenerate fits (one rank, timer noise, non-monotone times) fall back
+    to :func:`static_calibration`."""
+    n = int(mesh.shape[axis])
+    if n < 2:
+        return static_calibration()
+    group = mesh.group_for(axis)
+    cols = 128
+    secs = []
+    g_bytes, a_bytes = [], []
+    for kib in payload_kib:
+        shard_rows = max(1, (kib * 1024) // (cols * 4))
+        x = torch.zeros((shard_rows, cols), dtype=torch.int32,
+                        device=mesh.device)
+        outs = [torch.empty_like(x) for _ in range(n)]
+        g_bytes.append((n - 1) * shard_rows * cols * 4)
+        secs.append(_best_seconds(
+            mesh, lambda: dist.all_gather(outs, x, group=group), repeats))
+        bucket_rows = max(1, shard_rows // n)
+        xb = torch.zeros((n * bucket_rows, cols), dtype=torch.int32,
+                         device=mesh.device)
+        yb = torch.empty_like(xb)
+        a_bytes.append((n - 1) * bucket_rows * cols * 4)
+        secs.append(_best_seconds(
+            mesh, lambda: dist.all_to_all_single(yb, xb, group=group),
+            repeats))
+    t = torch.tensor(secs, dtype=torch.float64, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    t = t.cpu().numpy()
+    g_bw, g_launch = _fit_line(g_bytes, t[0::2])
+    a_bw, a_launch = _fit_line(a_bytes, t[1::2])
+    if not (np.isfinite(g_bw) and np.isfinite(a_bw)):
+        return static_calibration()
+    return Calibration(all_gather_bw=g_bw, all_to_all_bw=a_bw,
+                       launch_s=max(g_launch, a_launch), source="measured")
+
+
+#: process-wide memo: one microbenchmark pass per (mesh, axis, payloads)
+_CALIBRATION_CACHE: Dict[Tuple, Calibration] = {}
+
+
+def calibrate_mesh(mesh: Mesh, axis: str, *,
+                   payload_kib: Sequence[int] = CALIBRATION_PAYLOAD_KIB,
+                   repeats: int = CALIBRATION_REPEATS,
+                   force: bool = False) -> Calibration:
+    """Session-start calibration (memoized per process and mesh): engines
+    created with ``calibrate=True`` call this once per mesh, and later
+    engines on the same mesh reuse the fit."""
+    key = (axis, mesh.key(), tuple(payload_kib), repeats)
+    if force or key not in _CALIBRATION_CACHE:
+        _CALIBRATION_CACHE[key] = measure_collective_bandwidth(
+            mesh, axis, payload_kib=payload_kib, repeats=repeats)
+    return _CALIBRATION_CACHE[key]

@@ -5,7 +5,9 @@
 rewrites (zero device work), ``annotate`` sizes every buffer at plan time,
 and ``compile_plan`` lowers the optimized DAG to one ``sources -> (KG,
 raw)`` closure; ``materialize_plan`` evaluates its relation inputs into
-a concrete ``DIS'`` and ``explain`` prints the annotated DAG.
+a concrete ``DIS'`` and ``explain`` prints the annotated DAG;
+``annotate_local`` and ``compile_mesh_plan`` are the mesh forms (one
+per-rank closure over row-sharded sources).
 """
 from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Pred,
                  Project, Scan, Select, Union, fingerprint, intern,
@@ -13,18 +15,23 @@ from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Pred,
 from .lower import LogicalPlan, lower, selection_preds
 from .optimize import (PlanStats, cse, merge_maps, optimize,
                        push_projections, push_selections)
-from .annotate import annotate, join_match_total
+from .annotate import (JoinExchange, annotate, annotate_local,
+                       join_exchange_cost, join_match_total,
+                       poisson_shard_bound)
 from .compile import (compile_plan, execute_node, input_names,
                       materialize_plan)
+from .mesh import compile_mesh_plan, plan_scans
 from .explain import dump_plan, explain
 
 __all__ = [
-    "ColEq", "Distinct", "EmitTriples", "EquiJoin", "LogicalPlan", "Node",
-    "PlanStats", "Pred", "Project", "Scan", "Select", "Union", "annotate",
+    "ColEq", "Distinct", "EmitTriples", "EquiJoin", "JoinExchange",
+    "LogicalPlan", "Node", "PlanStats", "Pred", "Project", "Scan", "Select",
+    "Union", "annotate", "annotate_local", "compile_mesh_plan",
     "compile_plan", "cse", "dump_plan", "execute_node", "explain",
     "fingerprint", "input_names", "intern", "iter_nodes",
-    "join_match_total", "lower", "make_coleq", "make_select",
-    "materialize_plan", "node_order",
+    "join_exchange_cost", "join_match_total", "lower", "make_coleq",
+    "make_select", "materialize_plan", "node_order", "plan_scans",
+    "poisson_shard_bound",
     "merge_maps", "optimize", "push_projections", "push_selections",
     "selection_preds", "tree_size",
 ]

@@ -63,13 +63,29 @@ def execute_node(node: Node, sources: Mapping[str, Table],
                  memo: Dict[Node, Table], emitter=None,
                  dedup: Optional[str] = None,
                  caps: Optional[Mapping[Node, int]] = None,
-                 overflow: Optional[List[torch.Tensor]] = None) -> Table:
+                 overflow: Optional[List[torch.Tensor]] = None, *,
+                 join_exchange=None, distinct_global=None) -> Table:
     """Evaluate one DAG node (and, via ``memo``, each shared subtree once).
 
     When ``overflow`` is a list, every capped operator appends a 0-d bool
     flag — "this node needed more rows than its plan-time capacity and was
     truncated" — exactly once per unique node. ``KGEngine`` reduces the
     flags to its recompile-on-overflow signal.
+
+    ``join_exchange`` and ``distinct_global`` are the mesh hooks
+    (:mod:`repro_torch.plan.mesh`); single-device execution leaves them
+    ``None``:
+
+    * ``join_exchange(node, left, right) -> (left, right)`` runs before
+      every ⋈ — the per-rank closure either all-gathers the (rank-local)
+      parent rows so a row-sharded child joins against the full parent,
+      or hash-repartitions *both* sides by join key so each rank joins
+      only its key range.
+    * ``distinct_global(node, child) -> table`` replaces the local δ of a
+      ``Distinct`` node with a global hash-repartition δ, so every
+      interior relation stays an exact multiset partition of its
+      single-device value. The result is still fitted to the node's
+      plan-time capacity and flagged on truncation here.
     """
     hit = memo.get(node)
     if hit is not None:
@@ -78,7 +94,8 @@ def execute_node(node: Node, sources: Mapping[str, Table],
 
     def run(child: Node) -> Table:
         return execute_node(child, sources, memo, emitter, dedup, caps,
-                            overflow)
+                            overflow, join_exchange=join_exchange,
+                            distinct_global=distinct_global)
 
     def capped(table: Table) -> Table:
         cap = caps.get(node)
@@ -98,7 +115,9 @@ def execute_node(node: Node, sources: Mapping[str, Table],
         mask = child.column(node.left_attr) == child.column(node.right_attr)
         out = capped(select_mask(child, mask))
     elif isinstance(node, Distinct):
-        out = capped(distinct(run(node.child), dedup=dedup))
+        child = run(node.child)
+        out = capped(distinct(child, dedup=dedup) if distinct_global is None
+                     else distinct_global(node, child))
     elif isinstance(node, Union):
         parts = [run(c) for c in node.inputs]
         aligned = [parts[0]] + [project(p, parts[0].attrs) for p in parts[1:]]
@@ -108,6 +127,8 @@ def execute_node(node: Node, sources: Mapping[str, Table],
         out = Table(data=data, count=count, attrs=parts[0].attrs)
     elif isinstance(node, EquiJoin):
         left, right = run(node.left), run(node.right)
+        if join_exchange is not None:
+            left, right = join_exchange(node, left, right)
         cap = caps.get(node, round_cap(left.capacity * 4))
         out, total = equi_join(left, right, node.left_key, node.right_key,
                                out_capacity=cap,
@@ -143,7 +164,9 @@ def compile_plan(plan: LogicalPlan, emitter, engine: str = "rmlmapper",
     instead of returning a truncated KG.
 
     The engine/sink semantics (per-map δ under sdm, δδ = δ for a single
-    map, sink δ) stay in lockstep with :meth:`LogicalPlan.sink`."""
+    map, sink δ) stay in lockstep with :meth:`LogicalPlan.sink`. The
+    mesh sibling is :func:`repro_torch.plan.mesh.compile_mesh_plan` (same
+    DAG, one per-rank body, the sink δ fused as a repartition)."""
     emit_nodes = plan.emits()
 
     def fn(sources: Mapping[str, Table]):

@@ -4,26 +4,18 @@ Renders the full DAG (sink δ → ∪ → per-map emits → joins → relation
 chains) as an indented text tree with per-node capacity/row annotations
 from the annotation pass. Shared subtrees (CSE hits, join parents) print
 once and show up as ``(shared #k)`` references afterwards, making the
-common-subplan elimination visible.
-
-The port plans on one device: the mesh annotations (``n_shards``,
-``exchanges``) wait for the multi-GPU slice (ROADMAP.md Queue 1 item 4);
-passing them raises ``NotImplementedError``.
+common-subplan elimination visible. On a mesh, every ⋈ additionally
+shows its cost-modelled exchange decision (gather vs repartition) and the
+estimated per-device wire bytes of both strategies.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional
 
-from .annotate import annotate
+from .annotate import JoinExchange, annotate, annotate_local
 from .ir import (ColEq, Distinct, EmitTriples, EquiJoin, Node, Project,
                  Scan, Select, Union)
 from .lower import LogicalPlan
-
-
-def _not_ported(what: str, item: int, slice_name: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet: it belongs to the port's {slice_name} "
-        f"slice (ROADMAP.md Queue 1 item {item})")
 
 
 def _label(node: Node) -> str:
@@ -62,14 +54,17 @@ def _fmt_bytes(n: int) -> str:
 def dump_plan(plan: LogicalPlan, engine: str = "rmlmapper",
               counts: Optional[Mapping[Node, int]] = None,
               caps: Optional[Mapping[Node, int]] = None,
-              exchanges: Optional[Mapping[Node, object]] = None,
+              exchanges: Optional[Mapping[Node, JoinExchange]] = None,
               schemas: Optional[Mapping[Node, object]] = None,
               verdict: Optional[str] = None) -> str:
     """Text tree of the whole plan DAG with per-node annotations
-    (``rows=`` from ``counts``, ``cap=`` from ``caps``). ``schemas`` (the
-    static verifier's per-node inference, ``repro_torch.analysis
-    .verify_plan(...).schemas``) adds a ``cols=`` bit per node; ``verdict``
-    (e.g. ``report.describe()``) is printed as a header above the tree."""
+    (``rows=`` from ``counts``, ``cap=`` from ``caps``). ``exchanges`` (a
+    mesh plan's per-⋈ decisions from ``annotate_local``) adds
+    ``exchange=<strategy>`` plus the estimated per-device wire bytes of
+    both strategies to every ⋈ line. ``schemas`` (the static verifier's
+    per-node inference, ``repro_torch.analysis.verify_plan(...).schemas``)
+    adds a ``cols=`` bit per node; ``verdict`` (e.g.
+    ``report.describe()``) is printed as a header above the tree."""
     return dump_root(plan.sink(engine), counts=counts, caps=caps,
                      exchanges=exchanges, schemas=schemas, verdict=verdict)
 
@@ -77,16 +72,15 @@ def dump_plan(plan: LogicalPlan, engine: str = "rmlmapper",
 def dump_root(root: Node,
               counts: Optional[Mapping[Node, int]] = None,
               caps: Optional[Mapping[Node, int]] = None,
-              exchanges: Optional[Mapping[Node, object]] = None,
+              exchanges: Optional[Mapping[Node, JoinExchange]] = None,
               schemas: Optional[Mapping[Node, object]] = None,
               verdict: Optional[str] = None) -> str:
     """Root-generic body of :func:`dump_plan` — renders any IR DAG from
     its root node. Query plans (whose root is the answer δ rather than an
     engine sink) use this directly via ``KGEngine.explain_query``."""
-    if exchanges is not None:
-        _not_ported("exchanges (a mesh plan's ⋈ decisions)", 4, "multi-GPU")
     counts = counts or {}
     caps = caps or {}
+    exchanges = exchanges or {}
     schemas = schemas or {}
     shared_ids: Dict[int, int] = {}
     seen_multi = _multi_referenced(root)
@@ -103,6 +97,17 @@ def dump_root(root: Node,
             bits.append(f"rows={counts[node]}")
         if node in caps:
             bits.append(f"cap={caps[node]}")
+        exch = exchanges.get(node)
+        if exch is not None:
+            fanout = getattr(exch, "parent_fanout", 1)
+            bits.append(f"exchange={exch.strategy}")
+            # gather_bytes is the amortized per-⋈ share of the one shared
+            # all_gather when several ⋈ reuse this parent's replica
+            bits.append(f"gather≈{_fmt_bytes(exch.gather_bytes)}"
+                        + (f" (÷{fanout} shared parent)" if fanout > 1
+                           else ""))
+            bits.append(f"all_to_all≈{_fmt_bytes(exch.repartition_bytes)}")
+            bits.append(f"cost={getattr(exch, 'cost_source', 'static')}")
         return ("  [" + ", ".join(bits) + "]") if bits else ""
 
     def render(node: Node, prefix: str, is_last: bool, is_root: bool):
@@ -147,12 +152,26 @@ def explain(plan: LogicalPlan, engine: str = "rmlmapper",
             join_exchange: str = "auto", calibration=None) -> str:
     """Convenience: annotate (host-side, exact) and dump the plan.
 
-    ``n_shards`` (a shard-local annotation with each ⋈'s exchange
-    decision under ``join_exchange`` and ``calibration``) is the mesh
-    form; it raises ``NotImplementedError`` until the multi-GPU slice."""
-    if n_shards is not None:
-        _not_ported("explain(n_shards=...) (the mesh plan)", 4, "multi-GPU")
+    With ``n_shards`` the annotation runs shard-locally
+    (:func:`annotate_local`, per-shard source blocks derived from the
+    plan's source capacities) and every ⋈ line shows the cost model's
+    exchange decision under ``join_exchange`` plus the estimated wire
+    bytes per strategy — what a mesh ``KGEngine`` session would build.
+    Each ⋈ line's ``cost=`` bit says whether those numbers came from the
+    static constants or a measured
+    :class:`repro_torch.launch.mesh.Calibration` (pass one via
+    ``calibration``)."""
     if not with_annotations:
         return dump_plan(plan, engine)
-    counts, caps = annotate(plan)
-    return dump_plan(plan, engine, counts, caps)
+    if n_shards is None:
+        counts, caps = annotate(plan)
+        return dump_plan(plan, engine, counts, caps)
+    from repro_torch.relalg.table import bucket_cap
+    from .mesh import plan_scans
+    cap_locals = {name: bucket_cap(-(-plan.dis.sources[name].capacity
+                                     // n_shards))
+                  for name in plan_scans(plan)}
+    counts, caps, exchanges = annotate_local(
+        plan, n_shards=n_shards, cap_locals=cap_locals,
+        join_exchange=join_exchange, calibration=calibration)
+    return dump_plan(plan, engine, counts, caps, exchanges)

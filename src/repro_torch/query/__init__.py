@@ -14,8 +14,8 @@ here:
 
 Served by :meth:`repro_torch.api.KGEngine.query`. The mesh forms
 (``annotate_query_local``, ``compile_query_mesh`` and
-``query_mesh_abstract_inputs``) wait for the port's multi-GPU slice
-(ROADMAP.md Queue 1 item 4).
+``query_mesh_abstract_inputs``) wait for the mesh queries (ROADMAP.md
+Queue 1 item 2).
 """
 from .annotate import annotate_query
 from .compile import compile_query

@@ -8,8 +8,9 @@ post-order instead — reusing the same row evaluator and structural bounds,
 so the capacity semantics (exact vs bound mode, slack, bucketed cap_fn,
 overflow-recompile ladder) are identical to the creation path's.
 
-The shard-local form (the reference's ``annotate_query_local``) belongs to
-the port's multi-GPU slice (ROADMAP.md Queue 1 item 4).
+The shard-local form (the reference's ``annotate_query_local``) waits for
+the mesh queries (ROADMAP.md Queue 1 item 2); KG creation on a mesh is
+ported.
 """
 from __future__ import annotations
 

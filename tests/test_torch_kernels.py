@@ -201,7 +201,13 @@ def test_radix_kernel_feasibility_gate():
     assert kernel_feasible(1 << 20, 5, 8, 140_000)
     assert kernel_feasible(1024, 5, 64, 256, key_cols=(4, 0))
     assert not kernel_feasible(0, 5, 8, 256)          # empty
-    assert not kernel_feasible(1024, 5, 3, 256)       # non-power-of-two
+    # exchange mode takes any bucket count (one per shard); the
+    # order-preserving mode keeps its power-of-two rule
+    assert kernel_feasible(1024, 5, 3, 256)
+    assert kernel_feasible(1024, 5, 1, 256)
+    assert not kernel_feasible(1024, 5, 3, 256, order_preserving=True)
+    assert not kernel_feasible(1024, 5, 1, 256, order_preserving=True)
+    assert not kernel_feasible(1024, 5, 0, 256)       # no bucket
     assert not kernel_feasible(1024, 5, 2048, 256)    # too many buckets
     assert not kernel_feasible(1024, 5, 8, 256, key_cols=(5,))  # bad col
     assert not kernel_feasible(1024, 40, 8, 256)      # > 16 key columns

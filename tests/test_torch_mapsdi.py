@@ -18,6 +18,7 @@ of the file's time, so each case runs under one δ strategy
 under its own (engine, dedup) pair (KG_CASES).
 """
 import dataclasses
+import importlib
 import json
 import warnings
 
@@ -473,7 +474,6 @@ def test_paper_config_and_load_dis(tmp_path):
 
 
 def test_explain_helpers_match_reference():
-    import importlib
     JX = importlib.import_module("repro.plan.explain")
     TX = importlib.import_module("repro_torch.plan.explain")
     for n in (0, 1, 1023, 1024, 1536, 5 << 20, 3 << 30, 7 << 40):
@@ -487,12 +487,17 @@ def test_explain_helpers_match_reference():
 
 
 def test_unported_explain_arguments_raise():
+    """The mesh arguments are ported now: ``explain(n_shards=2)`` and
+    ``dump_plan(exchanges=...)`` print the reference's text."""
+    jdis = JS.make_group_b_dis(16, 0.5, seed=3)
     tdis = TS.make_group_b_dis(16, 0.5, seed=3, device="cpu")
-    plan = TC.plan_mapsdi(tdis)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TP.explain(plan, n_shards=2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        TP.dump_plan(plan, exchanges={})
+    jplan, plan = JC.plan_mapsdi(jdis), TC.plan_mapsdi(tdis)
+    JX = importlib.import_module("repro.plan.explain")
+    for strategy in ("gather", "repartition"):
+        assert TP.explain(plan, n_shards=2, join_exchange=strategy) == \
+            JX.explain(jplan, n_shards=2, join_exchange=strategy)
+    assert TP.dump_plan(plan, exchanges={}) == \
+        JP.dump_plan(jplan, exchanges={})
     # the static verifier's schemas and verdict are ported: the dump
     # carries them as the reference's does
     from repro_torch.analysis import verify_plan

@@ -22,6 +22,7 @@ about 3.5 times as long for the same queries. Every test starts and ends
 with both packages' plan caches empty (``isolated_plan_caches``).
 """
 import warnings
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -537,13 +538,39 @@ def test_positional_engine_and_dedup_match_reference():
     ("join_exchange", "repartition", 4), ("calibrate", True, 4),
     ("plan_store", "default", 5)])
 def test_not_ported_keywords_raise(name, value, item):
-    _, tdis = make_dis("group_b", 16, 0)
+    """Only ``plan_store`` is still unported (Queue 1 item 5). The mesh
+    keywords (item 4) behave as the reference's: a mesh whose axes lack
+    ``mesh_axis`` raises ``ValueError`` in both packages, and
+    ``join_exchange`` / ``calibrate`` without a mesh are accepted and
+    ignored."""
+    jdis, tdis = make_dis("group_b", 16, 0)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        with pytest.raises(NotImplementedError,
-                           match=f"Queue 1 item {item}"):
-            TA.KGEngine(tdis, device="cpu", **{name: value})
-        # the single-device, storeless value is the session the port runs
-        default = TENG._NOT_PORTED[name][0]
-        eng = TA.KGEngine(tdis, device="cpu", **{name: default})
-    assert eng.config == TA.EngineConfig()
+        if name == "plan_store":
+            with pytest.raises(NotImplementedError,
+                               match=f"Queue 1 item {item}"):
+                TA.KGEngine(tdis, device="cpu", **{name: value})
+            # the storeless value is the session the port runs
+            default = TENG._NOT_PORTED[name][0]
+            eng = TA.KGEngine(tdis, device="cpu", **{name: default})
+            assert eng.config == TA.EngineConfig()
+            return
+        if name in ("mesh", "mesh_axis"):
+            kw = ({name: value} if name == "mesh" else
+                  {"mesh": SimpleNamespace(shape={"data": 1}),
+                   "mesh_axis": value})
+            for pkg, dis, extra in ((JA, jdis, {}),
+                                    (TA, tdis, {"device": "cpu"})):
+                with pytest.raises(ValueError, match="mesh_axis"):
+                    pkg.KGEngine(dis, **kw, **extra)
+            return
+        jeng = JA.KGEngine(jdis, verify="off", **{name: value})
+        eng = TA.KGEngine(tdis, device="cpu", **{name: value})
+    assert eng.config == TA.EngineConfig(**{name: value})
+    jkg, jst = jeng.create_kg()
+    tkg, tst = eng.create_kg()
+    np.testing.assert_array_equal(tkg.to_codes(), jkg.to_codes())
+    assert tst["raw_triples"] == jst["raw_triples"]
+    for key in ("cost_model", "calibration", "join_exchange"):
+        assert eng.stats()[key] == jeng.stats()[key]
+    assert eng.calibration is None and eng.stats()["mesh"] is None
