@@ -74,6 +74,40 @@ no result):
    the cold ``create_kg`` seconds at each level, the plan seconds (the
    soundness-gated fixpoint) and each audited call's seconds, reads and
    launches, beside the card's name and power limit.
+2f. KG serving on the card (``repro_torch.serve.FrontDoor``): 4 tenants
+   over 2 shapes, tenant t over a private copy (its own vocab) of
+   ``make_group_b_dis(GROUP_B_ROWS, 0.75, seed=t % 2)`` (seed 0 is phase
+   2's DIS as built), each fed 16 requests of
+   ``make_group_b_extension_records(4096)`` (both sources), which takes
+   each tenant across its capacity bucket once. Three legs: synchronous
+   (one ``pump(force=True)`` per request; every flush's ingest must launch
+   all three δ kernels, read between a reset and a read; every tenant's
+   KG equal bit for bit to a dedicated card session fed the same stream
+   at the same flush granularity, one tenant per shape to the port's CPU
+   run over its accumulated sources; ``compile_dedup()`` with 2 shapes and
+   compiles = 2 first builds + the recompile stalls), worker thread
+   (``start()``, a 0.01 s flush window, one client thread per tenant,
+   ``stop(drain=True)``; every ticket resolves, each KG equals the
+   dedicated session's as a row set), overload (a queue of 8, every
+   request submitted before any pump; accepted + rejected = submitted,
+   completed = accepted, the sheds typed ``Overloaded``). Prints per-flush
+   ingest ms (median, max) and launches, per leg the request latency
+   p50/p99, rows/s, compiles, recompile stalls and sheds, beside the
+   card's name and power limit.
+2g. The persistent plan store across fresh processes: phase 2's DISes as
+   built (group B at GROUP_B_ROWS, group A at GROUP_A_ROWS) are saved to a
+   temporary file once; three fresh processes of this script
+   (``--store-leg``) then run ``create_kg`` on the card under both engines
+   with ``dedup="hash"``: a writer populating a temporary store, a reader
+   (every session ``store_hits == 1``, ``builds == 0``, ``store_checks ==
+   1``, KG codes and raw counts equal to the writer's) and a storeless run
+   (the same KGs); each must launch the δ kernels. Then ``python -m
+   repro_torch.analysis store`` over the store exits 0; one entry's caps
+   are damaged and a session rejects it, rebuilds and gives the writer's
+   KG under ``verify="plan"`` and ``"off"``; an entry written by a CPU
+   session is not served to a card session. Prints cold ``create_kg``
+   seconds and plan seconds, storeless against rehydrated, beside the
+   card's name and power limit.
 3. Every kernel against its plain PyTorch version on the card, bit for bit
    (tolerance 0: integer code), at N = 2**20 rows for K = 1, 2, 5 and 10,
    at every (capacity, K) the main path handed the hash δ, and at the
@@ -1161,6 +1195,404 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
 
 
 # ---------------------------------------------------------------------------
+# phase 2f
+# ---------------------------------------------------------------------------
+
+KG_SERVE_TENANTS, KG_SERVE_SHAPES = 4, 2
+#: per tenant: rounds of group-B extension records, rows per source a round
+KG_SERVE_ROUNDS, KG_SERVE_BATCH_ROWS = 16, 4096
+KG_SERVE_FLUSH_WINDOW = 0.01
+#: the overload leg's hard high-water (queued requests)
+KG_SERVE_OVERLOAD_QUEUE = 8
+
+
+def private_copy(dis):
+    """``dis`` with a vocab of its own. Sessions over one DIS share its
+    vocab (``DIS.copy`` keeps it) and intern their deltas into it, so
+    every tenant and every reference session gets a private copy: their
+    vocabularies grow apart as records are encoded."""
+    out = dis.copy()
+    out.vocab = dis.vocab.copy()
+    return out
+
+
+def kg_serve_streams():
+    """Per tenant, KG_SERVE_ROUNDS requests of group-B extension records (both
+    sources, KG_SERVE_BATCH_ROWS rows each), each drawn from its own seed."""
+    from repro_torch.data.synthetic import make_group_b_extension_records
+    return {f"tenant{t}": [make_group_b_extension_records(
+        KG_SERVE_BATCH_ROWS, seed=10_000 + r * KG_SERVE_TENANTS + t)
+        for r in range(KG_SERVE_ROUNDS)] for t in range(KG_SERVE_TENANTS)}
+
+
+def kg_serve_door(dev, bases, **kw):
+    """A front door on the card with the KG_SERVE_TENANTS tenants registered,
+    tenant t over a private copy of shape ``t % KG_SERVE_SHAPES``'s DIS."""
+    from repro_torch.api import EngineConfig
+    from repro_torch.serve import FrontDoor
+    door = FrontDoor(EngineConfig(engine="sdm", dedup="hash"), device=dev,
+                     **kw)
+    for t in range(KG_SERVE_TENANTS):
+        door.register(f"tenant{t}", private_copy(bases[t % KG_SERVE_SHAPES]))
+    return door
+
+
+def kg_serve_line(torch, door, tickets, secs, card, leg):
+    """The leg's request latency p50/p99, rows/s, compiles, recompile
+    stalls and sheds, beside the card."""
+    from repro_torch.serve import percentile
+    st = door.serve_stats()
+    lat = [tk.result(timeout=0).latency_s for tk in tickets]
+    rows = sum(per["rows"] for per in st["per_tenant"].values())
+    log(f"serve {leg:9s} {len(tickets)} requests, {st['flushes']} flushes, "
+        f"{rows} rows in {secs:.3f} s: {rows / secs:.0f} rows/s  latency "
+        f"p50 {percentile(lat, 50) * 1e3:.1f} ms p99 "
+        f"{percentile(lat, 99) * 1e3:.1f} ms  compiles {st['compiles']} "
+        f"(shapes {st['shapes']}, tenants {st['tenants']})  recompile "
+        f"stalls {st['recompile_stalls']}  sheds "
+        f"{json.dumps(st['admission']['sheds'])}  ({card})")
+    return st
+
+
+def kg_serve_phase(torch, dev, card, pristine):
+    """KG serving on the card: KG_SERVE_TENANTS tenants over KG_SERVE_SHAPES
+    group-B shapes at GROUP_B_ROWS rows per source, each fed KG_SERVE_ROUNDS
+    requests. Three legs (synchronous, worker thread, overload); the
+    launches of every flush of the synchronous leg and the phase's
+    launches are read between a reset and a read."""
+    import threading
+
+    import numpy as np
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.data.synthetic import make_group_b_dis
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.relalg import Table
+    from repro_torch.serve import Overloaded, Ticket
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    # shape 0 is phase 2's group-B DIS (make_group_b_dis(GROUP_B_ROWS,
+    # 0.75, seed=0)) as built, before any session grew its vocab
+    bases = [pristine[f"group_b_{GROUP_B_ROWS}"],
+             make_group_b_dis(GROUP_B_ROWS, 0.75, seed=1, device="cpu")]
+    streams = kg_serve_streams()
+    log(f"serve: shape 1's DIS and {KG_SERVE_TENANTS} x {KG_SERVE_ROUNDS} requests "
+        f"built in {time.perf_counter() - t0:.1f} s")
+    cfg = EngineConfig(engine="sdm", dedup="hash")
+    totals = dict.fromkeys(INT_KERNELS, 0)
+
+    # synchronous leg: one flush per request, each flush's launches read
+    clear_plan_cache()
+    door = kg_serve_door(dev, bases, flush_window=0.0,
+                      max_queue=KG_SERVE_TENANTS * KG_SERVE_ROUNDS)
+    tickets, ingest_s, per_flush = [], [], []
+    t0 = time.perf_counter()
+    for r in range(KG_SERVE_ROUNDS):
+        for tid, stream in streams.items():
+            tk = door.submit(tid, stream[r])
+            check(isinstance(tk, Ticket), f"serve sync: {tid} shed: {tk}")
+            reset_launch_counts()
+            check(door.pump(force=True) == 1, "serve sync: not one flush")
+            res = tk.result(timeout=0)
+            got = launch_counts()
+            check(all(got[k] > 0 for k in INT_KERNELS),
+                  f"serve sync: {tid} round {r}: the flush's ingest did not "
+                  f"launch every δ kernel: {got}")
+            for k in INT_KERNELS:
+                totals[k] += got[k]
+            per_flush.append(got)
+            tickets.append(tk)
+            ingest_s.append(res.ingest_s)
+    secs = time.perf_counter() - t0
+    st = kg_serve_line(torch, door, tickets, secs, card, "sync")
+    spread = {k: f"{min(f[k] for f in per_flush)}-"
+                 f"{max(f[k] for f in per_flush)}" for k in INT_KERNELS}
+    log(f"serve sync  per-flush ingest ms: median "
+        f"{statistics.median(ingest_s) * 1e3:.2f} max "
+        f"{max(ingest_s) * 1e3:.2f}; launches per flush {json.dumps(spread)}"
+        f", over its {len(ingest_s)} flushes {json.dumps(totals)}  ({card})")
+    dedup = door.registry.compile_dedup()
+    check(dedup["shapes"] == KG_SERVE_SHAPES and dedup["tenants"] ==
+          KG_SERVE_TENANTS, f"serve sync: compile_dedup {dedup}")
+    # the first tenant of each shape builds its first plan and the other
+    # hits it; every later build is a recompile the door counted
+    check(st["compiles"] == KG_SERVE_SHAPES + st["recompile_stalls"],
+          f"serve sync: {st['compiles']} compiles, {KG_SERVE_SHAPES} shapes, "
+          f"{st['recompile_stalls']} recompile stalls")
+    log(f"serve sync  compiles {st['compiles']} = {KG_SERVE_SHAPES} first "
+        f"builds (one per shape; the second tenant of a shape hits them) + "
+        f"{st['recompile_stalls']} recompiles (bucket crossings and "
+        f"overflow rebuilds); per tenant recompiles "
+        f"{json.dumps({t: p['recompiles'] for t, p in st['per_tenant'].items()})}")
+    served = {tid: door.kg(tid).to_codes() for tid in streams}
+    # each tenant against a dedicated card session fed the same stream at
+    # the same flush granularity, bit for bit
+    t0 = time.perf_counter()
+    dedicated = {}
+    for t, (tid, stream) in enumerate(streams.items()):
+        eng = KGEngine(private_copy(bases[t % KG_SERVE_SHAPES]), config=cfg,
+                       device=dev)
+        for recs in stream:
+            kg, _ = eng.ingest({
+                n: Table.from_records(rows, eng.sources[n].attrs, eng.vocab,
+                                      device=dev)
+                for n, rows in recs.items()})
+        dedicated[tid] = kg.to_codes()
+        check(served[tid].shape == dedicated[tid].shape and
+              np.array_equal(served[tid], dedicated[tid]),
+              f"serve sync: {tid}'s KG differs from a dedicated session's")
+    t1 = time.perf_counter()
+    # one tenant per shape against the port's CPU run (the plain versions)
+    # over its accumulated sources
+    for tid in list(streams)[:KG_SERVE_SHAPES]:
+        eng = door.registry.get(tid).engine
+        acc = private_copy(eng._dis)
+        acc.sources = {n: t.to("cpu") for n, t in eng.sources.items()}
+        kg, _ = KGEngine(acc, config=cfg, device="cpu").run()
+        check(np.array_equal(served[tid], kg.to_codes()),
+              f"serve sync: {tid}'s KG differs from the CPU run")
+    log(f"serve sync  every tenant's KG == a dedicated card session's "
+        f"(bit for bit; {t1 - t0:.1f} s); tenant0, tenant1 == the CPU run "
+        f"({time.perf_counter() - t1:.1f} s); KG triples "
+        f"{json.dumps({t: len(c) for t, c in served.items()})}")
+    del door
+
+    # worker-thread leg: one client thread per tenant, the worker flushes
+    reset_launch_counts()
+    door = kg_serve_door(dev, bases, flush_window=KG_SERVE_FLUSH_WINDOW,
+                      max_queue=KG_SERVE_TENANTS * KG_SERVE_ROUNDS,
+                      storm_queue=KG_SERVE_TENANTS * KG_SERVE_ROUNDS)
+    sent = {tid: [] for tid in streams}
+
+    def client(tid):
+        for recs in streams[tid]:
+            sent[tid].append(door.submit(tid, recs))
+
+    clients = [threading.Thread(target=client, args=(tid,))
+               for tid in streams]
+    t0 = time.perf_counter()
+    door.start()
+    try:
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=600)
+        check(not any(th.is_alive() for th in clients),
+              "serve worker: a client thread did not finish")
+    finally:
+        door.stop(drain=True, timeout=STORE_CHILD_TIMEOUT)
+    secs = time.perf_counter() - t0
+    tickets = [tk for tks in sent.values() for tk in tks]
+    check(all(isinstance(tk, Ticket) for tk in tickets),
+          f"serve worker: a request was shed: {door.serve_stats()}")
+    check(all(tk.done() for tk in tickets),
+          "serve worker: a ticket did not resolve after stop(drain=True)")
+    kg_serve_line(torch, door, tickets, secs, card, "worker")
+    for tid in streams:
+        check(door.kg(tid).row_set() == {tuple(int(x) for x in row)
+                                         for row in dedicated[tid]},
+              f"serve worker: {tid}'s KG differs from a dedicated session's "
+              "as a row set")
+    got = launch_counts()
+    check(all(got[k] > 0 for k in INT_KERNELS),
+          f"serve worker: a δ kernel was not launched: {got}")
+    for k in INT_KERNELS:
+        totals[k] += got[k]
+    del door
+
+    # overload leg: every request submitted before any pump
+    reset_launch_counts()
+    door = kg_serve_door(dev, bases, flush_window=0.0,
+                      max_queue=KG_SERVE_OVERLOAD_QUEUE)
+    t0 = time.perf_counter()
+    responses = [door.submit(tid, stream[r]) for r in range(KG_SERVE_ROUNDS)
+                 for tid, stream in streams.items()]
+    door.drain()            # pumps until the queue is empty
+    secs = time.perf_counter() - t0
+    tickets = [r for r in responses if isinstance(r, Ticket)]
+    sheds = [r for r in responses if not isinstance(r, Ticket)]
+    check(all(isinstance(s, Overloaded) and s.reason == "queue_full"
+              for s in sheds) and len(sheds) == len(responses) -
+          KG_SERVE_OVERLOAD_QUEUE, "serve overload: sheds not typed Overloaded "
+          "queue_full, or not the queue's overflow")
+    st = kg_serve_line(torch, door, tickets, secs, card, "overload")
+    check(st["accepted"] + st["rejected"] == len(responses) and
+          st["completed"] == st["accepted"] == len(tickets) and
+          st["errors"] == 0 and all(tk.done() for tk in tickets),
+          f"serve overload: submitted {len(responses)}, stats {st}")
+    got = launch_counts()
+    for k in INT_KERNELS:
+        totals[k] += got[k]
+    del door
+    log(f"serve launches (all legs): {json.dumps(totals)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    check(all(totals[k] > 0 for k in INT_KERNELS),
+          f"a δ kernel was not launched in phase 2f: {totals}")
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 2g
+# ---------------------------------------------------------------------------
+
+#: each store subprocess's limit, seconds
+STORE_CHILD_TIMEOUT = 300
+STORE_ROLES = ("writer", "reader", "storeless")
+
+
+def kg_digest(codes) -> str:
+    import hashlib
+    return f"{codes.shape}:{hashlib.sha256(codes.tobytes()).hexdigest()}"
+
+
+def store_leg(role: str, root: str, dis_path: str, device: str) -> int:
+    """One fresh process of phase 2g: ``create_kg`` on ``device`` (the
+    card) for every DIS in ``dis_path`` under both engines, with the store
+    at ``root`` (``writer``, ``reader``) or none (``storeless``). Prints one
+    JSON line: per session the KG digest, raw count, seconds and
+    counters; and the launches."""
+    import torch
+    from repro_torch.api import EngineConfig, KGEngine
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    dev = torch.device(device)
+    dises = torch.load(dis_path, weights_only=False)
+    out = {}
+    reset_launch_counts()
+    for name, dis in dises.items():
+        for engine in ENGINES:
+            eng = KGEngine(dis, config=EngineConfig(
+                engine=engine, dedup="hash",
+                plan_store=None if role == "storeless" else root),
+                device=dev)
+            (kg, st), secs = timed(torch, dev, eng.create_kg)
+            s = eng.stats()
+            out[f"{name} {engine}"] = {
+                "kg": kg_digest(kg.to_codes()), "raw": st["raw_triples"],
+                "seconds": secs, "plan_seconds": st["preprocess_seconds"],
+                "builds": eng.builds,
+                "store_checks": s["verify"]["store_checks"],
+                **{k: st[k] for k in ("store_hits", "store_misses",
+                                      "store_rejects")}}
+    print(json.dumps({"sessions": out, "launches": launch_counts()}))
+    return 0
+
+
+def run_store_leg(role: str, root: str, dis_path: str, dev):
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--store-leg", role, root, dis_path, str(dev)],
+                         capture_output=True, text=True,
+                         timeout=STORE_CHILD_TIMEOUT)
+    check(res.returncode == 0,
+          f"store {role} process failed:\n{res.stderr[-4000:]}")
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out["process_seconds"] = time.perf_counter() - t0
+    return out
+
+
+def store_phase(torch, dev, card, pristine):
+    """The persistent plan store across fresh processes on the card; then
+    the store check CLI, damaged caps and a CPU session's entry."""
+    import tempfile
+
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.api.store import (PlanStore, read_container,
+                                       store_envelope, store_key,
+                                       write_container)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
+        root = os.path.join(tmp, "store")
+        dis_path = os.path.join(tmp, "dises.pt")
+        dises = {"group_b": pristine[f"group_b_{GROUP_B_ROWS}"],
+                 "group_a": pristine[f"group_a_{GROUP_A_ROWS}"]}
+        t0 = time.perf_counter()
+        torch.save(dises, dis_path)
+        log(f"store: DISes saved for the fresh processes in "
+            f"{time.perf_counter() - t0:.1f} s")
+        legs = {role: run_store_leg(role, root, dis_path, dev)
+                for role in STORE_ROLES}
+        writer, reader, bare = (legs[r]["sessions"] for r in STORE_ROLES)
+        for name, w in writer.items():
+            r, b = reader[name], bare[name]
+            check((w["store_hits"], w["store_misses"], w["builds"]) ==
+                  (0, 1, 1), f"store writer {name}: {w}")
+            check((r["store_hits"], r["store_rejects"], r["builds"],
+                   r["store_checks"]) == (1, 0, 0, 1),
+                  f"store reader {name}: {r}")
+            check(r["kg"] == w["kg"] == b["kg"] and
+                  r["raw"] == w["raw"] == b["raw"],
+                  f"store {name}: KG codes or raw differ between the "
+                  "writer, the reader and the storeless run")
+            log(f"store {name:19s} cold create_kg s: storeless "
+                f"{b['seconds']:.3f}, rehydrated {r['seconds']:.3f} (writer "
+                f"{w['seconds']:.3f}); plan s: storeless "
+                f"{b['plan_seconds']:.4f}, rehydrated "
+                f"{r['plan_seconds']:.4f}  kg+raw == writer's  ({card})")
+        for role in STORE_ROLES:
+            got = legs[role]["launches"]
+            check(all(got[k] > 0 for k in INT_KERNELS),
+                  f"store {role}: a δ kernel was not launched: {got}")
+            log(f"store {role:9s} process {legs[role]['process_seconds']:.1f}"
+                f" s, launches {json.dumps(got)}")
+        env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+        res = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                              "store", "--root", root], env=env,
+                             capture_output=True, text=True, timeout=120)
+        check(res.returncode == 0, f"analysis store failed: {res.stdout}"
+              f"{res.stderr}")
+        log(f"store: python -m repro_torch.analysis store: "
+            f"{res.stdout.strip().splitlines()[-1]}")
+
+        # damaged caps (negative): rejected under "plan" and under "off",
+        # then a fresh build (which writes a sound entry back)
+        dis_a = dises["group_a"]
+        want = writer["group_a sdm"]
+        probe = KGEngine(private_copy(dis_a), config=EngineConfig(
+            engine="sdm", dedup="hash"), device=dev)
+        env_card = store_envelope(dev)
+        path = PlanStore(root).entry_path(
+            store_key(probe._key(probe.sources), env_card))
+        for level in ("plan", "off"):
+            header, payloads = read_container(path)
+            header["meta"]["caps"] = [[i, -5] for i, _ in
+                                      header["meta"]["caps"]]
+            write_container(path, header, payloads)
+            clear_plan_cache()
+            eng = KGEngine(private_copy(dis_a), config=EngineConfig(
+                engine="sdm", dedup="hash", verify=level, plan_store=root),
+                device=dev)
+            kg, st = eng.create_kg()
+            got = (st["store_hits"], st["store_rejects"], eng.builds)
+            check(got == (0, 1, 1) and
+                  kg_digest(kg.to_codes()) == want["kg"] and
+                  st["raw_triples"] == want["raw"],
+                  f"store damaged caps, verify={level}: (hits, rejects, "
+                  f"builds) {got}, expected (0, 1, 1), or the KG differs "
+                  "from the writer's")
+            log(f"store damaged caps verify={level}: rejected, rebuilt "
+                f"(hits {got[0]} rejects {got[1]} builds {got[2]}); KG == "
+                "writer's")
+
+        # an entry written by a CPU session is not served to a card session
+        root_cpu = os.path.join(tmp, "cpu_store")
+        clear_plan_cache()
+        KGEngine(private_copy(dis_a), config=EngineConfig(
+            engine="sdm", dedup="hash", plan_store=root_cpu),
+            device="cpu").create_kg()
+        clear_plan_cache()
+        eng = KGEngine(private_copy(dis_a), config=EngineConfig(
+            engine="sdm", dedup="hash", plan_store=root_cpu), device=dev)
+        kg, st = eng.create_kg()
+        check((st["store_hits"], st["store_misses"]) == (0, 1) and
+              len(PlanStore(root_cpu)) == 2 and
+              kg_digest(kg.to_codes()) == want["kg"],
+              f"store: the card session took the CPU session's entry {st}")
+        log("store: a CPU session's entry was not served to the card "
+            "session (miss, then its own entry)")
+    clear_plan_cache()
+    log(f"store phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # phase 3
 # ---------------------------------------------------------------------------
 
@@ -1879,6 +2311,8 @@ def lm_kernel_phase(torch, dev):
 # ---------------------------------------------------------------------------
 
 def main() -> int:
+    if sys.argv[1:2] == ["--store-leg"]:    # one of phase 2g's processes
+        return store_leg(*sys.argv[2:6])
     t_start = time.perf_counter()
     try:
         import torch
@@ -1903,6 +2337,9 @@ def main() -> int:
         log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
             f"(nvcc {_lib.last_build_seconds:.2f} s)")
         workloads = build_workloads()
+        # the DISes as built, before any session grows their vocabs
+        pristine = {name: private_copy(dis)
+                    for name, dis, _small, _big in workloads}
         launches, path_shapes, main_gpu = main_path_phase(torch, dev,
                                                           workloads)
         paper_phase(torch, dev, card, workloads)
@@ -1910,7 +2347,9 @@ def main() -> int:
         verify_phase(torch, dev, card, workloads)
         mesh_launches, mesh_shapes = mesh_phase(torch, dev, card, workloads,
                                                 main_gpu)
-        del workloads, main_gpu
+        serve_launches = kg_serve_phase(torch, dev, card, pristine)
+        store_phase(torch, dev, card, pristine)
+        del workloads, main_gpu, pristine
         errs, bad, times, (n_rep, k_rep) = kernel_phase(
             torch, dev, path_shapes, [(n, k, nb, cb, cols) for
                                       n, k, nb, cb, cols in mesh_shapes])
@@ -1935,8 +2374,9 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            **({"mesh_launches": mesh_launches[name]}
-               if name in mesh_launches else {}),
+            **({"mesh_launches": mesh_launches[name],
+                "serve_launches": serve_launches[name]}
+               if name in INT_KERNELS else {}),
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

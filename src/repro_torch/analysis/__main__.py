@@ -16,8 +16,11 @@ verdict; ``--audit`` additionally compiles the single-device closure
 DIS's sources under :func:`~repro_torch.analysis.audit_closure`. ``demo``
 does the same on a built-in synthetic DIS (``--join`` picks the two-map
 join spec). ``--device`` places the sources: the CUDA card by default, as
-every port entry point, or ``cpu``. ``store`` exits non-zero: the plan
-store is not ported yet (ROADMAP.md Queue 1 item 5). Exit status is
+every port entry point, or ``cpu``. ``store`` integrity- and shape-checks
+every entry of a persistent plan store (:mod:`repro_torch.api.store`;
+``--root`` defaults to :func:`~repro_torch.api.store.default_store_root`)
+without adopting any: container checksums, the port's envelope, the
+node-indexed metadata and the session-key payload. Exit status is
 non-zero iff any check failed.
 """
 from __future__ import annotations
@@ -76,6 +79,51 @@ def _check_dis(dis, engine: str, audit: bool, verbose: bool) -> int:
     return status
 
 
+def _check_store(root) -> int:
+    import os
+
+    from repro_torch.api.store import (FRAMEWORK, SESSION_KEY, PlanStore,
+                                       default_store_root, read_container)
+    store = PlanStore(root or default_store_root())
+    required = ("node_count", "engine", "mode", "counts", "caps",
+                "build_seconds")
+    bad = 0
+    entries = sorted(store._entry_files())
+    for path in entries:
+        name = os.path.basename(path)
+        try:
+            header, payloads = read_container(path)
+            framework = header.get("envelope", {}).get("framework")
+            if framework != FRAMEWORK:
+                raise ValueError(f"envelope framework {framework!r}, not "
+                                 f"{FRAMEWORK!r}")
+            meta = header.get("meta", {})
+            missing = [k for k in required if k not in meta]
+            if missing:
+                raise ValueError(f"meta missing keys {missing}")
+            for field in ("counts", "caps"):
+                pairs = meta[field]
+                idxs = [i for i, _ in pairs]
+                if any(i >= int(meta["node_count"]) or i < 0 for i in idxs):
+                    raise ValueError(
+                        f"{field} node index out of range "
+                        f"(node_count={meta['node_count']})")
+                if len(set(idxs)) != len(idxs):
+                    raise ValueError(f"duplicate node index in {field}")
+                if any(int(v) < 0 for _, v in pairs):
+                    raise ValueError(f"negative value in {field}")
+            if not payloads.get(SESSION_KEY):
+                raise ValueError("entry has no session-key payload")
+            print(f"{name}  ok  ({len(payloads)} payload(s), "
+                  f"{int(meta['node_count'])} nodes)")
+        except Exception as e:
+            bad += 1
+            print(f"{name}  INVALID ({e})")
+    print(f"{len(entries)} entr{'y' if len(entries) == 1 else 'ies'}, "
+          f"{bad} invalid")
+    return 1 if bad else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.analysis")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -105,9 +153,7 @@ def main(argv=None) -> int:
 
     args = ap.parse_args(argv)
     if args.cmd == "store":
-        print("store: the plan store is not ported yet (ROADMAP.md Queue 1 "
-              "item 5, the plan-store slice)", file=sys.stderr)
-        return 2
+        return _check_store(args.root)
     from repro_torch.device import resolve_device
     device = resolve_device(args.device)
     if args.cmd == "dis":

@@ -43,6 +43,7 @@ class CachedPlan:
     engine: str
     dedup: Optional[str]
     mode: str
+    build_seconds: float = 0.0
     # mesh entries only: the per-source shard-local block capacities, the
     # sink δ's bucket slack, the per-⋈ exchange decisions, and whether the
     # exchanges were sized hard-safe
@@ -50,6 +51,11 @@ class CachedPlan:
     sink_slack: float = 1.0
     exchanges: Optional[Dict[Node, object]] = None
     safe_exchange: bool = False
+    #: where the closure came from: ``"build"`` (annotated and built in
+    #: this process) or ``"store"`` (rebuilt from the counts and caps of a
+    #: persistent plan-store entry — the engine treats a failure to run
+    #: such a closure as one more store reject and rebuilds fresh)
+    origin: str = "build"
 
 
 class PlanCache:
@@ -96,3 +102,7 @@ PLAN_CACHE = PlanCache()
 def clear_plan_cache() -> None:
     """Drop every cached plan (benchmarks use this to measure cold paths)."""
     PLAN_CACHE.clear()
+
+
+def plan_cache_stats() -> Dict[str, int]:
+    return PLAN_CACHE.stats()

@@ -23,6 +23,11 @@ accepted and ignored. The mesh's identity and the exchange knob enter the
 plan-cache key through the engine's mesh signature, not
 :meth:`EngineConfig.cache_sig`.
 
+``plan_store`` is the persistent plan store
+(:func:`repro_torch.api.store.resolve_store` normalizes it), as in the
+reference: where a session's plans are kept across processes, not what
+they compute, so it stays out of :meth:`EngineConfig.cache_sig`.
+
 ``jit`` is the reference's switch between a jitted and an eager closure.
 The port's closures always run eagerly, so ``jit`` changes nothing in
 execution. It is accepted as the reference accepts it (which checks no
@@ -55,6 +60,7 @@ class EngineConfig:
     mesh_axis: str = "data"
     jit: bool = True
     join_exchange: str = "auto"
+    plan_store: object = None
     calibrate: object = False
     verify: str = "plan"
 

@@ -46,8 +46,21 @@ the exchange knob, so recompile-on-overflow and bucket-crossing ingests
 work as on one device. After each call the ranks agree on the overflow
 flags and ``raw`` (one ``all_gather``), gather the KG shards and run one
 δ over them, so every rank returns the single-device KG. Queries on a
-mesh session and the persistent plan store are not ported (ROADMAP.md
-Queue 1 items 2 and 5).
+mesh session and plan-store entries of mesh sessions are not ported
+(ROADMAP.md Queue 1 item 7, the mesh remainder).
+
+**The persistent plan store** (``plan_store=``, single device, as the
+reference's second tier behind the LRU): on a plan-cache miss the session
+looks the key up in the store (:mod:`repro_torch.api.store`) before it
+annotates, and after every build (overflow rebuilds included) it writes
+the entry back. An entry is the plan's node-indexed counts and caps, not
+an executable: a hit skips the exact annotation and its host reads, then
+rebuilds the closure from the stored caps. Unless ``verify="off"`` the
+rehydrated metadata is verified first (``stats()["verify"]
+["store_checks"]``). Every failure to load, verify, build or run an entry
+is one more ``store_rejects`` followed by a fresh build; caps too small
+for the data take the normal exact rebuild. Only ``jit=True`` sessions use
+the store, as in the reference.
 """
 from __future__ import annotations
 
@@ -79,18 +92,13 @@ from repro_torch.relalg.table import pad_rows
 
 from .cache import PLAN_CACHE, CachedPlan
 from .config import EngineConfig
+from .store import (SESSION_KEY, canonical, pack_entry_meta, resolve_store,
+                    store_envelope, store_key, unpack_entry_meta)
 
 #: sentinel distinguishing "kwarg not passed" from every real value — a
 #: bare ``KGEngine(dis)`` must not warn; an explicit legacy kwarg must
 _UNSET = object()
 _WARNED_LEGACY: set = set()
-
-#: the reference's keywords for the slices not ported yet, with the value
-#: that means "no store" (accepted) and the ROADMAP.md Queue 1 item that
-#: ports the rest
-_NOT_PORTED = {
-    "plan_store": (None, 5, "plan-store"),
-}
 
 
 def _warn_legacy_kwargs(names: Tuple[str, ...]) -> None:
@@ -151,10 +159,10 @@ class KGEngine:
         ``"exact"`` or ``"bound"``), ``slack`` (multiplier on annotated
         counts before bucketing), ``jit`` (keyed, no-op in the eager port),
         ``verify`` (``"plan"`` | ``"full"`` | ``"off"``, the static
-        verification level) and the mesh fields below. The canonical
-        spelling.
+        verification level), ``plan_store`` and the mesh fields below.
+        The canonical spelling.
     engine, dedup, optimize, mode, slack, jit, verify, mesh, mesh_axis,
-    join_exchange, calibrate
+    join_exchange, plan_store, calibrate
         The reference's keyword spelling of the same fields: deprecated
         (one ``DeprecationWarning`` per combination per process), folded
         into an ``EngineConfig``; passing them together with ``config``
@@ -179,9 +187,13 @@ class KGEngine:
         injects known numbers; ``False`` keeps the static constants. The
         calibration's signature joins the plan-cache key.
     plan_store
-        The reference's persistent plan store: only ``None`` is accepted;
-        any other value raises ``NotImplementedError`` naming the
-        ROADMAP.md item that ports it.
+        The persistent second tier behind the in-process LRU (see the
+        module docstring): ``None`` (default) disables it; ``True`` or
+        ``"default"`` uses ``$REPRO_TORCH_PLAN_STORE`` /
+        ``~/.cache/repro-torch-plans``; a path or a
+        :class:`repro_torch.api.store.PlanStore` uses that store. Requires
+        ``jit=True`` (other sessions skip the store) and one device (a
+        mesh session with a store raises ``NotImplementedError``).
     device
         ``None`` (the default) runs on the CUDA card (on a mesh: the
         mesh's device); ``"cpu"`` runs the plain PyTorch path on the CPU.
@@ -213,17 +225,8 @@ class KGEngine:
                 raise TypeError("config must be an EngineConfig, got "
                                 f"{type(config).__name__}")
         else:
-            names = tuple(sorted(legacy))
-            for name in sorted(set(legacy) & set(_NOT_PORTED)):
-                default, item, slice_name = _NOT_PORTED[name]
-                value = legacy.pop(name)
-                if value != default:
-                    raise NotImplementedError(
-                        f"KGEngine({name}={value!r}) is not ported yet: it "
-                        f"belongs to the port's {slice_name} slice "
-                        f"(ROADMAP.md Queue 1 item {item})")
-            if names:
-                _warn_legacy_kwargs(names)
+            if legacy:
+                _warn_legacy_kwargs(tuple(sorted(legacy)))
             config = EngineConfig(**legacy)   # validates every field
         self.config = config
         self.mesh, self.mesh_axis = config.mesh, config.mesh_axis
@@ -255,6 +258,17 @@ class KGEngine:
         self.verify = config.verify
         self._verify_plan_checks = 0
         self._verify_audits = 0
+        self._verify_store_checks = 0
+        self._store = resolve_store(config.plan_store)
+        if self._store is not None and self.mesh is not None:
+            raise NotImplementedError(
+                "plan-store entries of mesh sessions are not ported yet "
+                "(ROADMAP.md Queue 1 item 7, the mesh remainder)")
+        self.jit = config.jit
+        # hits, misses and rejects of the KG tier and the query tier
+        self._store_counts = {
+            tier: dict.fromkeys(("hits", "misses", "rejects"), 0)
+            for tier in ("kg", "query")}
         #: the report of the session's latest audit (``verify="full"``)
         self.last_audit: Optional[AuditReport] = None
         self._dis = dis.copy()
@@ -335,7 +349,9 @@ class KGEngine:
 
     @property
     def builds(self) -> int:
-        """Closures built *by this session* (plan-cache hits excluded)."""
+        """Closures built *by this session* (plan-cache hits and plan-store
+        rehydrations excluded) — the denominator of the serve layer's
+        compile-dedup ratio."""
         return self._builds
 
     @property
@@ -484,6 +500,7 @@ class KGEngine:
                floor_caps: Optional[Mapping] = None,
                sink_slack: float = 1.0,
                safe_exchange: bool = False) -> CachedPlan:
+        t0 = time.perf_counter()
         mode = mode or self.mode
         if self.mesh is None:
             counts, caps = annotate(self._plan, mode=mode, slack=self.slack,
@@ -517,13 +534,101 @@ class KGEngine:
         entry = CachedPlan(key=key, plan=plan, emitter=self._emitter,
                            counts=counts, caps=caps, fn=fn,
                            engine=self.engine, dedup=self.dedup, mode=mode,
+                           build_seconds=time.perf_counter() - t0,
                            cap_locals=cap_locals, sink_slack=sink_slack,
                            exchanges=exchanges, safe_exchange=safe_exchange)
         PLAN_CACHE.put(key, entry)
         self._builds += 1
+        self._store_save(entry)
         if self._have_plan:
             self._recompiles += 1
         return entry
+
+    # -- persistent plan store ----------------------------------------------
+    def _uses_store(self) -> bool:
+        return self._store is not None and self.jit
+
+    def _store_save(self, entry: CachedPlan) -> None:
+        """Write a freshly built entry back to the persistent store —
+        best-effort: any serialization or IO failure is counted, never
+        raised (a full disk must not take the session down)."""
+        if not self._uses_store():
+            return
+        store = self._store
+        try:
+            env = store_envelope(self.device, self.calibration)
+            store.save(store_key(entry.key, env), env,
+                       pack_entry_meta(entry, entry.plan),
+                       {SESSION_KEY: canonical(entry.key).encode()})
+        except Exception:
+            store.write_errors += 1
+
+    def _store_load(self, tier: str, key: Tuple, plan, emitter, verify,
+                    build) -> Optional[CachedPlan]:
+        """Second-tier lookup of ``key`` for the ``tier`` (``"kg"`` or
+        ``"query"``): validate the entry, unpack its node-indexed counts
+        and caps against ``plan`` (this process's freshly lowered DAG),
+        verify them unless ``verify="off"`` (``verify(counts, caps)``
+        returns a report), then build the closure with ``build(caps)`` —
+        no annotation. Returns ``None`` (and counts a miss or reject)
+        whenever anything is off; the caller then builds fresh, so a bad
+        store can delay but never corrupt a session."""
+        if not self._uses_store():
+            return None
+        counts = self._store_counts[tier]
+        try:
+            env = store_envelope(self.device, self.calibration)
+            skey = store_key(key, env)
+        except TypeError:       # a non-canonical key component: no store
+            counts["rejects"] += 1
+            return None
+        res = self._store.load(skey, env)
+        if res.status != "hit":
+            counts["misses" if res.status == "miss" else "rejects"] += 1
+            return None
+        t0 = time.perf_counter()
+        try:
+            meta = res.header["meta"]
+            if res.payloads.get(SESSION_KEY) != canonical(key).encode():
+                raise ValueError("session key mismatch")
+            if meta.get("engine") != self.engine or \
+                    meta.get("dedup") != self.dedup:
+                raise ValueError("entry engine/dedup mismatch")
+            unpacked = unpack_entry_meta(meta, plan)
+            if any(c < 0 for c in unpacked["caps"].values()):
+                # not a closure that can be built, whatever ``verify`` says
+                raise ValueError("negative stored capacity")
+            if self.verify != "off":
+                # the stored node-index lists mapped onto THIS process's
+                # DAG must still describe a well-formed plan — a colliding
+                # or corrupted entry that slipped past the checksums
+                # rejects here
+                report = verify(unpacked["counts"], unpacked["caps"])
+                if not report.ok:
+                    raise ValueError(
+                        "stored plan metadata failed static verification: "
+                        + "; ".join(str(d) for d in report.diagnostics[:3]))
+                self._verify_store_checks += 1
+            fn = build(unpacked["caps"])
+        except Exception as e:  # rehydration failure degrades to a build
+            counts["rejects"] += 1
+            self._store._reject(f"rehydrate: {type(e).__name__}: {e}")
+            return None
+        counts["hits"] += 1
+        entry = CachedPlan(key=key, plan=plan, emitter=emitter,
+                           counts=unpacked["counts"], caps=unpacked["caps"],
+                           fn=fn, engine=self.engine, dedup=self.dedup,
+                           mode=unpacked["mode"],
+                           build_seconds=time.perf_counter() - t0,
+                           origin="store")
+        PLAN_CACHE.put(key, entry)
+        return entry
+
+    def _store_run_failed(self, tier: str, err: Exception) -> None:
+        """A rehydrated entry whose closure failed to run here: one more
+        reject of ``tier`` (the caller rebuilds fresh)."""
+        self._store_counts[tier]["rejects"] += 1
+        self._store._reject(f"run: {type(err).__name__}: {err}")
 
     def _ensure(self, sources: Mapping[str, Table]) -> Tuple[CachedPlan, bool]:
         key = self._key(sources)
@@ -533,7 +638,19 @@ class KGEngine:
             self._cache_hits += 1
         else:
             self._cache_misses += 1
-            entry = self._build(key, sources)
+            plan = self._slim_plan()
+            entry = self._store_load(
+                "kg", key, plan, self._emitter,
+                lambda counts, caps: verify_plan(
+                    self._plan, self.engine, counts=counts, caps=caps,
+                    sources=sources, slack=self.slack,
+                    check_canonical=self.optimize, check_cse=self.optimize),
+                lambda caps: compile_plan(plan, self._emitter,
+                                          engine=self.engine,
+                                          dedup=self.dedup, caps=caps,
+                                          report_overflow=True))
+            if entry is None:
+                entry = self._build(key, sources)
         self._have_plan = True
         return entry, hit
 
@@ -583,7 +700,18 @@ class KGEngine:
         if self.mesh is not None:
             kg, raw, entry, hit = self._run_mesh(entry, sources, hit)
         else:
-            kg, raw, over = self._run_entry(entry, sources, fresh=not hit)
+            try:
+                kg, raw, over = self._run_entry(
+                    entry, sources, fresh=not hit and entry.origin == "build")
+            except Exception as e:
+                # a store entry whose caps build a closure that cannot run
+                # here is one more store reject: rebuild fresh, never crash
+                if entry.origin != "store":
+                    raise
+                self._store_run_failed("kg", e)
+                hit = False
+                entry = self._build(entry.key, sources)
+                kg, raw, over = self._run_entry(entry, sources, fresh=True)
             if over:
                 # some buffer was truncated: re-annotate exactly against
                 # the *current* extension, grow caps monotonically, re-run
@@ -755,9 +883,8 @@ class KGEngine:
     def _no_mesh_queries(self, what: str) -> None:
         if self.mesh is not None:
             raise NotImplementedError(
-                f"KGEngine.{what} on a mesh session is not ported yet: it "
-                "belongs to the port's multi-GPU query slice (ROADMAP.md "
-                "Queue 1 item 2)")
+                f"KGEngine.{what} on a mesh session is not ported yet "
+                "(ROADMAP.md Queue 1 item 7, the mesh remainder)")
 
     def _kg_table(self, kg: Optional[Table]) -> Table:
         """Resolve + bucket the KG table a query reads: the session KG by
@@ -789,7 +916,9 @@ class KGEngine:
                      mode: Optional[str] = None,
                      floor_caps: Optional[Mapping] = None) -> CachedPlan:
         """Query sibling of :meth:`_build`: annotate, statically verify,
-        then compile the single-device closure."""
+        compile the single-device closure and write it back to the plan
+        store."""
+        t0 = time.perf_counter()
         sources = {KG_SOURCE: kg}
         counts, caps = annotate_query(qplan, sources,
                                       mode=mode or self.mode,
@@ -804,9 +933,11 @@ class KGEngine:
         fn = compile_query(qplan, dedup=self.dedup, caps=caps)
         entry = CachedPlan(key=key, plan=qplan, emitter=None, counts=counts,
                            caps=caps, fn=fn, engine=self.engine,
-                           dedup=self.dedup, mode=mode or self.mode)
+                           dedup=self.dedup, mode=mode or self.mode,
+                           build_seconds=time.perf_counter() - t0)
         PLAN_CACHE.put(key, entry)
         self._builds += 1
+        self._store_save(entry)
         return entry
 
     def _run_query_entry(self, entry: CachedPlan, sources, fresh: bool):
@@ -848,10 +979,28 @@ class KGEngine:
             self._q_cache_hits += 1
         else:
             self._q_cache_misses += 1
-            entry = self._build_query(key, qplan, table)
+            entry = self._store_load(
+                "query", key, qplan, None,
+                lambda counts, caps: verify_query_plan(
+                    qplan, counts=counts, caps=caps, sources=sources,
+                    slack=self.slack),
+                lambda caps: compile_query(qplan, dedup=self.dedup,
+                                           caps=caps))
+            if entry is None:
+                entry = self._build_query(key, qplan, table)
         plan_s = time.perf_counter() - t0
         t1 = time.perf_counter()
-        result, over = self._run_query_entry(entry, sources, fresh=not hit)
+        try:
+            result, over = self._run_query_entry(
+                entry, sources, fresh=not hit and entry.origin == "build")
+        except Exception as e:
+            # a store entry that cannot run here (see run())
+            if entry.origin != "store":
+                raise
+            self._store_run_failed("query", e)
+            hit = False
+            entry = self._build_query(key, qplan, table)
+            result, over = self._run_query_entry(entry, sources, fresh=True)
         if over:
             hit = False   # the hit did not actually serve this query
             self._q_recompiles += 1
@@ -896,7 +1045,8 @@ class KGEngine:
         entry: CachedPlan = self._last["entry"]
         names = input_names(entry.plan)
         counts = entry.counts
-        if exact_rows and entry.mode == "exact" and self._last["cache_hit"]:
+        if exact_rows and entry.mode == "exact" \
+                and (self._last["cache_hit"] or entry.origin == "store"):
             # a hit reuses counts from whichever same-bucket extension
             # built the entry; recount for honest Table-1 reduced sizes
             counts, _ = annotate(entry.plan, mode="exact",
@@ -925,6 +1075,7 @@ class KGEngine:
             "plan_cache_hit": self._last["cache_hit"],
             "plan_cache_hits": self._cache_hits,
             "plan_cache_misses": self._cache_misses,
+            **{f"store_{k}": v for k, v in self._store_counts["kg"].items()},
         }
 
     def stats(self) -> Dict[str, object]:
@@ -948,9 +1099,7 @@ class KGEngine:
             "verify": {"mode": self.verify,
                        "plan_checks": self._verify_plan_checks,
                        "audits": self._verify_audits,
-                       # rehydrated plan-store entries verified: none until
-                       # the plan store is ported (ROADMAP.md Queue 1 item 5)
-                       "store_checks": 0},
+                       "store_checks": self._verify_store_checks},
             "device": str(self.device),
             "executions": self._executions, "ingests": self._ingests,
             "ingested_rows": self._ingested_rows,
@@ -959,6 +1108,9 @@ class KGEngine:
             "plan_cache_hits": self._cache_hits,
             "plan_cache_misses": self._cache_misses,
             "plan_cache": PLAN_CACHE.stats(),
+            **{f"store_{k}": v for k, v in self._store_counts["kg"].items()},
+            "plan_store": (None if self._store is None
+                           else self._store.stats()),
             "plan_seconds": self._plan_seconds,
             "source_buckets": {k: v.capacity
                                for k, v in self.sources.items()},
@@ -972,6 +1124,8 @@ class KGEngine:
                 "cache_hits": self._q_cache_hits,
                 "cache_misses": self._q_cache_misses,
                 "recompiles": self._q_recompiles,
+                **{f"store_{k}": v
+                   for k, v in self._store_counts["query"].items()},
             },
         }
         if self._last:

@@ -113,7 +113,7 @@ def get_config(arch: str) -> ArchConfig:
     if mod_name in QUEUED_ARCH_IDS:
         raise NotImplementedError(
             f"{arch!r} is not ported yet: the port runs {list(ARCH_IDS)}; "
-            "ROADMAP.md (Queue 1, item 7) queues the other families")
+            "ROADMAP.md (Queue 1, item 8) queues the other families")
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

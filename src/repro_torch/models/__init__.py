@@ -21,7 +21,7 @@ def get_model(family: str) -> ModuleType:
     if family in QUEUED_FAMILIES:
         raise NotImplementedError(
             f"the {family!r} family is not ported yet; ROADMAP.md (Queue 1, "
-            "item 7) queues it")
+            "item 8) queues it")
     try:
         return MODEL_FAMILIES[family]
     except KeyError:

@@ -15,7 +15,7 @@ here:
 Served by :meth:`repro_torch.api.KGEngine.query`. The mesh forms
 (``annotate_query_local``, ``compile_query_mesh`` and
 ``query_mesh_abstract_inputs``) wait for the mesh queries (ROADMAP.md
-Queue 1 item 2).
+Queue 1 item 7, the mesh remainder).
 """
 from .annotate import annotate_query
 from .compile import compile_query

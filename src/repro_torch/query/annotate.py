@@ -9,7 +9,7 @@ so the capacity semantics (exact vs bound mode, slack, bucketed cap_fn,
 overflow-recompile ladder) are identical to the creation path's.
 
 The shard-local form (the reference's ``annotate_query_local``) waits for
-the mesh queries (ROADMAP.md Queue 1 item 2); KG creation on a mesh is
+the mesh queries (ROADMAP.md Queue 1 item 7); KG creation on a mesh is
 ported.
 """
 from __future__ import annotations

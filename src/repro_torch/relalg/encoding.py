@@ -29,6 +29,14 @@ class Vocab:
     def __len__(self) -> int:
         return len(self._to_value)
 
+    def copy(self) -> "Vocab":
+        """A vocab of its own with the same ids (values are shared: they
+        are immutable), so two sessions can grow apart from one DIS."""
+        out = Vocab()
+        out._to_id = dict(self._to_id)
+        out._to_value = list(self._to_value)
+        return out
+
     def intern(self, value: Hashable) -> int:
         vid = self._to_id.get(value)
         if vid is None:

@@ -630,11 +630,12 @@ def _cli(*args):
                           timeout=300)
 
 
-def test_cli_demo_and_store():
+def test_cli_demo_and_store(tmp_path):
     out = _cli("demo", "--join", "--audit", "-v", "--device", "cpu")
     assert out.returncode == 0, out.stderr
     assert "verify: ok" in out.stdout and "audit: ok" in out.stdout
     assert "cols=" in out.stdout
-    out = _cli("store")
-    assert out.returncode != 0
-    assert "Queue 1 item 5" in out.stderr
+    # a clean (here: empty) store passes, as in the reference
+    out = _cli("store", "--root", str(tmp_path / "empty"))
+    assert out.returncode == 0, out.stderr
+    assert "0 entries, 0 invalid" in out.stdout

@@ -537,24 +537,21 @@ def test_positional_engine_and_dedup_match_reference():
     ("mesh", object(), 4), ("mesh_axis", "model", 4),
     ("join_exchange", "repartition", 4), ("calibrate", True, 4),
     ("plan_store", "default", 5)])
-def test_not_ported_keywords_raise(name, value, item):
-    """Only ``plan_store`` is still unported (Queue 1 item 5). The mesh
-    keywords (item 4) behave as the reference's: a mesh whose axes lack
-    ``mesh_axis`` raises ``ValueError`` in both packages, and
+def test_not_ported_keywords_raise(name, value, item, tmp_path,
+                                   monkeypatch):
+    """The keywords the port took over from later slices behave as the
+    reference's. The mesh keywords (Queue 1 item 4): a mesh whose axes
+    lack ``mesh_axis`` raises ``ValueError`` in both packages, and
     ``join_exchange`` / ``calibrate`` without a mesh are accepted and
-    ignored."""
+    ignored. ``plan_store`` (item 5, ported): ``"default"`` is accepted
+    by both, each package's default store root (pointed at a temporary
+    directory here) gets its first miss and its entry, and the KGs
+    agree."""
+    monkeypatch.setenv("REPRO_PLAN_STORE", str(tmp_path / "reference"))
+    monkeypatch.setenv("REPRO_TORCH_PLAN_STORE", str(tmp_path / "port"))
     jdis, tdis = make_dis("group_b", 16, 0)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DeprecationWarning)
-        if name == "plan_store":
-            with pytest.raises(NotImplementedError,
-                               match=f"Queue 1 item {item}"):
-                TA.KGEngine(tdis, device="cpu", **{name: value})
-            # the storeless value is the session the port runs
-            default = TENG._NOT_PORTED[name][0]
-            eng = TA.KGEngine(tdis, device="cpu", **{name: default})
-            assert eng.config == TA.EngineConfig()
-            return
         if name in ("mesh", "mesh_axis"):
             kw = ({name: value} if name == "mesh" else
                   {"mesh": SimpleNamespace(shape={"data": 1}),
@@ -571,6 +568,11 @@ def test_not_ported_keywords_raise(name, value, item):
     tkg, tst = eng.create_kg()
     np.testing.assert_array_equal(tkg.to_codes(), jkg.to_codes())
     assert tst["raw_triples"] == jst["raw_triples"]
-    for key in ("cost_model", "calibration", "join_exchange"):
+    for key in ("cost_model", "calibration", "join_exchange", "store_hits",
+                "store_misses", "store_rejects"):
         assert eng.stats()[key] == jeng.stats()[key]
+    if name == "plan_store":
+        assert tst["store_misses"] == jst["store_misses"] == 1
+        assert eng.stats()["plan_store"]["root"] == str(tmp_path / "port")
+        assert eng.stats()["plan_store"]["writes"] == 1
     assert eng.calibration is None and eng.stats()["mesh"] is None
