@@ -74,6 +74,38 @@ no result):
    the cold ``create_kg`` seconds at each level, the plan seconds (the
    soundness-gated fixpoint) and each audited call's seconds, reads and
    launches, beside the card's name and power limit.
+2e. The mesh: group B at GROUP_B_ROWS on 4 ranks sharing the card over
+   gloo (``launch_ranks``), per engine and ⋈ exchange a session's four
+   main-path steps (each KG and raw count = phase 2's one-device card
+   run; launches per step and rank = exchange sites + radix δ layouts for
+   ``radix_partition``, hash δ calls for the other two), and after the
+   first step phase 2c's seven BGPs cold and cached: every rank's answer
+   = phase 2c's one-device card answer bit for bit and the oracle's row
+   set, the repeat a cache hit without a recompile, launches per call as
+   the sites imply; the skewed DIS (200,000 + 8 rows on one join key, a
+   KG of 1,400,010 triples) with exactly one recompile, and (under sdm)
+   two BGPs over its KG with 1,000,000 answers each (``skew_queries``: a
+   ⋈ under repartition, one under gather),
+   every rank's answer = the one-device card answer (by digest), which =
+   the oracle's; a calibrated session
+   under ``verify="full"`` whose audits (``create_kg`` and the two-hop
+   query) are clean on every rank, the query's collectives =
+   ``expected_query_collectives`` and not zero. The ``"auto"`` sessions
+   write a plan store. Prints per step and query the slowest rank's
+   seconds, collectives and launches, beside the card.
+2e′. A second spawn of 4 ranks: the store leg reads back phase 2e's
+   entries (per engine ``create_kg`` and the two-hop query: a KG store
+   hit, ``builds == 0`` where the query entry is the engine's own, the
+   writers' KG and answer; prints plan seconds storeless against
+   rehydrated), then the last rank reads a copy with damaged caps and
+   every rank rejects and builds, with the same KG; the front door over
+   the mesh (leader on rank 0): 2 tenants, each over a private copy of
+   phase 2's group-B DIS, 8 rounds of 4,096 rows per source, a
+   synchronous and a worker leg, every tenant's KG on every rank = a
+   one-device card front door fed the same stream at the same flush
+   granularity, every flush on every rank launching all three δ
+   kernels; prints per-flush ingest ms, latency p50/p99, rows/s and
+   compiles, beside the card.
 2f. KG serving on the card (``repro_torch.serve.FrontDoor``): 4 tenants
    over 2 shapes, tenant t over a private copy (its own vocab) of
    ``make_group_b_dis(GROUP_B_ROWS, 0.75, seed=t % 2)`` (seed 0 is phase
@@ -843,6 +875,7 @@ def query_phase(torch, dev, card, workloads):
                 f"recompiles {gr['recompiles']}  host reads "
                 f"{gr['host_reads']}  launches "
                 f"{json.dumps(gr['launches'])}  == cpu, == oracle  ({card})")
+    return gpu
 
 
 # ---------------------------------------------------------------------------
@@ -981,9 +1014,26 @@ MESH_RANKS = 4
 #: the whole group's limit (and each collective's), seconds
 MESH_TIMEOUT = 600
 MESH_STRATEGIES = ("gather", "repartition", "auto")
+#: the one exchange whose session runs phase 2's warm ``create_kg`` (a
+#: plan-cache hit that recounts the exact annotation, 3–4 s a rank): the
+#: other two skip it, to keep the script inside its time
+MESH_WARM_STRATEGY = "auto"
 #: the skewed DIS: every row of both sources on one join key (child rows,
 #: parent rows)
 MESH_SKEW = (200_000, 8)
+#: BGPs over the skewed DIS's KG (1,400,010 triples), sdm's (the same
+#: rows as rmlmapper's), built by :func:`skew_queries`
+MESH_SKEW_ENGINE = "sdm"
+#: the store leg's query (phase 2c's two-hop join), and the order the
+#: readers go in: a query entry's key names no engine (as the
+#: reference's), so the writers' last engine (sdm) owns it, and the other
+#: engine's reader rejects it (engine mismatch) and builds
+MESH_STORE_QUERY = "join_2hop"
+MESH_STORE_ORDER = ("sdm", "rmlmapper")
+#: the mesh front door: tenants (one shape: phase 2's group-B DIS, a
+#: private copy each) and rounds of requests of KG_SERVE_BATCH_ROWS rows
+#: per source
+MESH_DOOR_TENANTS, MESH_DOOR_ROUNDS = 2, 8
 
 
 def skewed_dis(n_child: int, n_parent: int):
@@ -1016,13 +1066,78 @@ def skewed_dis(n_child: int, n_parent: int):
     return parse_dis(spec, device="cpu")
 
 
-def mesh_rank(dis, deltas, skew):
+def skew_queries(codes):
+    """Two BGPs over the skewed KG's codes with 1,000,000 answers each:
+    every ``ex:rel`` triple (a child to one of the five parent subjects)
+    joined to its parent's ``ex:key`` triple, asked of the repartition
+    session (the ⋈ on five keys lands on few ranks: one safe recompile)
+    and, in the other pattern order (the same answer), of the gather
+    session. ``ex:rel`` is the most frequent predicate; ``ex:key`` the
+    one with a triple for each of the five parent subjects and no
+    other."""
+    import numpy as np
+    from repro_torch.api import Query, TriplePattern as P
+    preds, counts = np.unique(codes[:, 2], return_counts=True)
+    rel = int(preds[np.argmax(counts)])
+    parents = np.unique(codes[codes[:, 2] == rel][:, 3:5], axis=0)
+    of_parent = (codes[:, None, 0:2] == parents[None]).all(-1).any(-1)
+    key = [int(p) for p, c in zip(preds, counts)
+           if c == len(parents) and (codes[of_parent, 2] == p).sum() == c]
+    check(len(key) == 1, f"skewed KG: no single key predicate ({key})")
+    left, right = P("?c", rel, "?p"), P("?p", key[0], "?k")
+    return {"repartition": Query(patterns=[left, right]),
+            "gather": Query(patterns=[right, left])}
+
+
+def codes_digest(codes) -> str:
+    """sha256 of an answer's codes (shape and row order included): what
+    a rank sends back instead of millions of rows."""
+    import hashlib
+
+    import numpy as np
+    codes = np.ascontiguousarray(codes, dtype=np.int32)
+    return f"{codes.shape}:" + hashlib.sha256(codes.tobytes()).hexdigest()
+
+
+def mesh_query(torch, eng, q, digest=False, **kw):
+    """One mesh query call, timed (ending in a device sync), with its
+    kernel launches, hash δ calls, collectives and recompiles between a
+    reset and a read."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.relalg.ops import (hash_dedup_counts,
+                                        reset_hash_dedup_counts)
+    torch.cuda.synchronize()
+    before = eng.stats()
+    reset_launch_counts()
+    reset_hash_dedup_counts()
+    t0 = time.perf_counter()
+    res = eng.query(q, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    after = eng.stats()
+    codes = res.to_codes()
+    col_b = before["mesh"]["query_collectives"]
+    col_a = after["mesh"]["query_collectives"]
+    return {("digest" if digest else "codes"):
+            codes_digest(codes) if digest else codes,
+            "rows": len(codes), "attrs": tuple(res.attrs), "seconds": secs,
+            "hit": after["query"]["last_cache_hit"],
+            "recompiles": (after["query"]["recompiles"]
+                           - before["query"]["recompiles"]),
+            "launches": launch_counts(), "dedup": hash_dedup_counts(),
+            "collectives": {k: col_a[k] - col_b[k] for k in col_a}}
+
+
+def mesh_rank(dis, deltas, skew, queries, skew_qs, store_root):
     """One rank of the mesh phase (every rank runs it, on the one card):
-    per engine and ⋈ exchange a session's four main-path steps, the
-    skewed DIS under the repartition exchange, and one calibrated
-    session. Each step is timed (ending in a device sync) and carries its
-    kernel launches, hash δ calls and the collectives its closure calls
-    ran, between a reset and a read."""
+    per engine and ⋈ exchange a session's four main-path steps, with
+    ``queries[engine]`` (phase 2c's BGPs over its KG) cold and cached
+    after the first; the skewed DIS under the repartition exchange, with
+    ``skew_qs`` (:func:`skew_queries`); and one calibrated session under
+    ``verify="full"`` with the two-hop query. The ``"auto"`` sessions
+    write the plan store at ``store_root``. Each step is timed (ending in
+    a device sync) and carries its kernel launches, hash δ calls and the
+    collectives its closure calls ran, between a reset and a read."""
     import torch
     from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
     from repro_torch.core.distributed import (exchange_shapes,
@@ -1034,7 +1149,7 @@ def mesh_rank(dis, deltas, skew):
     mesh = make_mesh((MESH_RANKS,), ("data",))
     reset_exchange_shapes()
 
-    def run_step(eng, fn):
+    def run_step(eng, fn, step=0):
         torch.cuda.synchronize()
         before = eng.stats()["mesh"]["collectives"]
         reset_launch_counts()
@@ -1044,9 +1159,10 @@ def mesh_rank(dis, deltas, skew):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         after = eng.stats()["mesh"]["collectives"]
-        return {"codes": kg.to_codes(), "raw": st["raw_triples"],
-                "recompiles": st["recompiles"],
+        return {"step": step, "codes": kg.to_codes(),
+                "raw": st["raw_triples"], "recompiles": st["recompiles"],
                 "hit": st["plan_cache_hit"], "seconds": secs,
+                "plan_seconds": eng._last["plan_seconds"],
                 "launches": launch_counts(), "dedup": hash_dedup_counts(),
                 "collectives": {k: after[k] - before[k] for k in after}}
 
@@ -1056,36 +1172,71 @@ def mesh_rank(dis, deltas, skew):
             engine=engine, dedup="hash", mesh=mesh,
             join_exchange=strategy, **kw))
 
-    runs = {}
+    runs, answers, gather_sessions = {}, {}, {}
     for engine in ENGINES:
         for strategy in MESH_STRATEGIES:
-            eng = session(dis, engine, strategy)
-            steps = [run_step(eng, eng.create_kg),
-                     run_step(eng, eng.create_kg)]
-            steps += [run_step(eng, lambda d=d: eng.ingest(d))
-                      for d in deltas]
+            eng = session(dis, engine, strategy,
+                          plan_store=store_root if strategy == "auto"
+                          else None)
+            steps = [run_step(eng, eng.create_kg)]
+            answers[engine, strategy] = {
+                name: [mesh_query(torch, eng, q) for _ in range(2)]
+                for name, q in queries[engine].items()}
+            if strategy == MESH_WARM_STRATEGY:
+                steps.append(run_step(eng, eng.create_kg, 1))
+            steps += [run_step(eng, lambda d=d: eng.ingest(d), i)
+                      for i, d in enumerate(deltas, 2)]
             runs[engine, strategy] = {
                 "steps": steps, "mesh": eng.stats()["mesh"],
                 "wire": [ln.strip() for ln in eng.explain().splitlines()
                          if "exchange=" in ln]}
+            if strategy == "gather":
+                gather_sessions[engine] = eng
         eng = session(skew, engine, "repartition")
         runs[engine, "skew"] = {"steps": [run_step(eng, eng.create_kg)],
                                 "mesh": eng.stats()["mesh"], "wire": []}
-    eng = session(dis, "sdm", "auto", calibrate=True)
+        skew_kg = eng._kg
+        for strategy, q in (skew_qs.items() if engine == MESH_SKEW_ENGINE
+                            else ()):
+            target = eng if strategy == "repartition" \
+                else gather_sessions[engine]
+            answers[engine, "skew", strategy] = [
+                mesh_query(torch, target, q, digest=True, kg=skew_kg)
+                for _ in range(2)]
+        del skew_kg, eng
+    eng = session(dis, "sdm", "auto", calibrate=True, verify="full")
     runs["sdm", "calibrated"] = {"steps": [run_step(eng, eng.create_kg)],
                                  "mesh": eng.stats()["mesh"], "wire": []}
+    audits = [eng.last_audit]
+    answers["sdm", "audited"] = [mesh_query(
+        torch, eng, queries["sdm"][MESH_STORE_QUERY])]
+    audits.append(eng.last_audit)
+    entry = eng._q_last["entry"]
+    from repro_torch.analysis import expected_query_collectives
+    audit = [{"ok": a.ok, "collectives": a.collectives,
+              "expected": a.expected, "host_reads": a.host_reads,
+              "expected_host_reads": a.expected_host_reads,
+              "text": a.describe()} for a in audits]
     return {"rank": mesh.rank, "mesh": mesh.describe(), "runs": runs,
+            "answers": answers, "audit": audit,
+            "want_query_collectives": expected_query_collectives(
+                entry.plan, MESH_RANKS, exchanges=entry.exchanges),
             "calibration": eng.stats()["calibration"],
             "shapes": exchange_shapes()}
 
 
-def mesh_phase(torch, dev, card, workloads, main_gpu):
+def mesh_phase(torch, dev, card, workloads, main_gpu, query_gpu):
     """Group B at GROUP_B_ROWS on MESH_RANKS ranks sharing the card over
     gloo: per engine and exchange the four steps of phase 2, each KG (and
-    raw) equal to phase 2's single-device card KG; the skewed DIS with one
-    recompile and the single-device KG; a calibrated session. Returns the
-    launches summed over the ranks and the exchange shapes the radix
-    kernel was handed."""
+    raw) equal to phase 2's single-device card KG, and phase 2c's BGPs
+    over the KG, each answer equal to phase 2c's card answer and the
+    oracle's; the skewed DIS with one recompile and the single-device KG,
+    and its two BGPs; a calibrated, audited session. Then phase 2e′
+    (:func:`mesh_store_door_phase`). Returns the launches summed over the
+    ranks and the exchange shapes the radix kernel was handed."""
+    import shutil
+    import tempfile
+
     import numpy as np
     from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
     from repro_torch.kernels import _lib
@@ -1094,23 +1245,44 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
     dis, small, big = next((d, s, b) for n, d, s, b in workloads
                            if n == name)
     deltas = (encode(small, dis, dis.vocab), encode(big, dis, dis.vocab))
+    queries = {engine: query_gpu[name, engine]["queries"]
+               for engine in ENGINES}
     t0 = time.perf_counter()
     skew = skewed_dis(*MESH_SKEW)
     clear_plan_cache()
-    skew_kg = {}
+    skew_kg, skew_answers = {}, {}
     for engine in ENGINES:
-        kg, st = KGEngine(skew, config=EngineConfig(
-            engine=engine, dedup="hash"), device=dev).create_kg()
+        eng = KGEngine(skew, config=EngineConfig(engine=engine,
+                                                 dedup="hash"), device=dev)
+        kg, st = eng.create_kg()
         skew_kg[engine] = (kg.to_codes(), st["raw_triples"])
+        if engine != MESH_SKEW_ENGINE:
+            continue
+        skew_qs = skew_queries(skew_kg[engine][0])
+        want = None     # the two orders have one answer: one oracle run
+        for strategy, q in skew_qs.items():
+            codes = eng.query(q).to_codes()
+            skew_answers[strategy] = (codes_digest(codes), len(codes))
+            if want is None:
+                want = bgp_oracle(skew_kg[engine][0], q)
+            check(np.array_equal(np.unique(codes, axis=0), want) and
+                  len(want) == len(codes),
+                  f"mesh skew {strategy} BGP: the one-device answer "
+                  "differs from the oracle's")
+    del eng, want
     log(f"mesh: skewed DIS ({MESH_SKEW[0]} child rows, {MESH_SKEW[1]} "
-        f"parent rows, one key) built and run on one device in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"parent rows, one key) built and run on one device, with its "
+        f"BGPs (answers {[n for _d, n in skew_answers.values()]}, == "
+        f"oracle), in {time.perf_counter() - t0:.1f} s")
     _lib.build()            # once, before the ranks reach their launches
+    store_root = tempfile.mkdtemp(prefix="mesh_store_")
     t0 = time.perf_counter()
     try:
         ranks = launch_ranks(mesh_rank, MESH_RANKS, timeout=MESH_TIMEOUT,
-                             args=(dis, deltas, skew))
+                             args=(dis, deltas, skew, queries, skew_qs,
+                                   store_root))
     except RankError as e:
+        shutil.rmtree(store_root, ignore_errors=True)
         raise SmokeFailure(f"a mesh rank failed: {e}") from e
     log(f"mesh: {MESH_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s "
         f"(spawn included)")
@@ -1125,11 +1297,13 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
         else:
             want = main_gpu[(name, engine)]
         per_rank = [r["runs"][key] for r in ranks]
-        for i, w in enumerate(want[:len(per_rank[0]["steps"])]):
+        for j, first in enumerate(per_rank[0]["steps"]):
+            i = first["step"]
+            w = want[i]
             where = f"mesh {engine} {what} step {i}"
             launches = dict.fromkeys(INT_KERNELS, 0)
             for run in per_rank:
-                g = run["steps"][i]
+                g = run["steps"][j]
                 check(np.array_equal(g["codes"], w["codes"]) and
                       g["raw"] == w["raw"],
                       f"{where}: KG or raw differs from the single-device "
@@ -1149,7 +1323,7 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
                 for k in INT_KERNELS:
                     launches[k] += got_l[k]
                     totals[k] += got_l[k]
-            steps = [run["steps"][i] for run in per_rank]
+            steps = [run["steps"][j] for run in per_rank]
             secs = [s["seconds"] for s in steps]
             log(f"mesh {engine:9s} {what:11s} {STEPS[i]:17s} "
                 f"{max(secs):8.3f} s (slowest rank; rank 0 "
@@ -1159,9 +1333,10 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
                 f"(rank 0) {json.dumps(steps[0]['collectives'])}  "
                 f"{sorted(backends)} x{MESH_RANKS}  == one-device card KG  "
                 f"({card})")
-        r0 = per_rank[0]["steps"]
+        r0 = {st["step"]: st for st in per_rank[0]["steps"]}
         if what in MESH_STRATEGIES:
-            check(r0[1]["hit"] and r0[1]["recompiles"] == 0,
+            check(what != MESH_WARM_STRATEGY or
+                  (r0[1]["hit"] and r0[1]["recompiles"] == 0),
                   f"mesh {engine} {what}: warm create_kg rebuilt")
             check(r0[2]["recompiles"] == 0,
                   f"mesh {engine} {what}: in-bucket ingest recompiled")
@@ -1182,6 +1357,13 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
         f"one card): all_gather {cal['all_gather_bw'] / 1e9:.4f} GB/s, "
         f"all_to_all {cal['all_to_all_bw'] / 1e9:.4f} GB/s, launch "
         f"{cal['launch_s'] * 1e6:.1f} us  ({card})")
+    mesh_query_checks(ranks, {e: query_gpu[name, e] for e in ENGINES},
+                      skew_answers, totals, card)
+    try:
+        mesh_store_door_phase(torch, dev, card, dis, queries, ranks,
+                              store_root, totals)
+    finally:
+        shutil.rmtree(store_root, ignore_errors=True)
     log(f"mesh launches (all ranks, all runs): {json.dumps(totals)}")
     check(all(totals[k] > 0 for k in INT_KERNELS),
           f"a δ or exchange kernel was not launched on the mesh: {totals}")
@@ -1192,6 +1374,353 @@ def mesh_phase(torch, dev, card, workloads, main_gpu):
     log(f"mesh exchange shapes (rows, K, ranks, cap_bucket, key_cols): "
         f"{sorted(shapes, key=str)}")
     return totals, sorted(shapes, key=str)
+
+
+def query_launch_check(rec, where: str):
+    """A mesh query call's launches against its hash δ calls and exchange
+    sites (two all_to_all per site): ``rowhash`` = ``hash_neighbor_flags``
+    = hash δ calls, ``radix_partition`` = radix δ layouts + sites."""
+    calls = rec["dedup"]["calls"]
+    n_calls = sum(calls.values())
+    n_radix = sum(v for (layout, _c, _k), v in calls.items()
+                  if layout == "radix")
+    want = {"rowhash": n_calls, "hash_neighbor_flags": n_calls,
+            "radix_partition": n_radix + rec["collectives"]["all_to_all"] // 2}
+    got = {k: rec["launches"][k] for k in INT_KERNELS}
+    check(got == want, f"{where}: launches {got}, the exchange and δ sites "
+          f"imply {want}")
+    return got
+
+
+def mesh_query_checks(ranks, one_device, skew_answers, totals, card):
+    """Phase 2e's queries: every rank's answer to each of phase 2c's BGPs,
+    cold and cached, under every exchange and engine, equal bit for bit
+    to phase 2c's one-device card answer (and so to the oracle); each
+    cached repeat a plan-cache hit without a recompile; the launches per
+    call as the sites imply; the skewed KG's two BGPs equal to the
+    one-device answers (by digest); the audited session's audits clean,
+    the query's collectives equal to ``expected_query_collectives`` and
+    not zero."""
+    import numpy as np
+    for engine in ENGINES:
+        g = one_device[engine]
+        for strategy in MESH_STRATEGIES:
+            for qname, q in g["queries"].items():
+                want = g["answers"][qname]["cached"]["codes"]
+                oracle = bgp_oracle(g["kg"], q)
+                secs = {"cold": [], "cached": []}
+                launches = {run: dict.fromkeys(INT_KERNELS, 0)
+                            for run in secs}
+                for r in ranks:
+                    cold, cached = r["answers"][engine, strategy][qname]
+                    for run, rec in (("cold", cold), ("cached", cached)):
+                        where = (f"mesh query {engine} {strategy} {qname} "
+                                 f"{run} rank {r['rank']}")
+                        check(np.array_equal(rec["codes"], want) and
+                              rec["attrs"] == q.answer_attrs(),
+                              f"{where}: the answer differs from the "
+                              "one-device card answer")
+                        uniq = (np.unique(rec["codes"], axis=0)
+                                if len(rec["codes"]) else rec["codes"])
+                        check(len(uniq) == len(rec["codes"]) and
+                              np.array_equal(uniq, oracle),
+                              f"{where}: the answer differs from the "
+                              "oracle's")
+                        got = query_launch_check(rec, where)
+                        for k in INT_KERNELS:
+                            launches[run][k] += got[k]
+                            totals[k] += got[k]
+                        secs[run].append(rec["seconds"])
+                    check(cached["hit"] and cached["recompiles"] == 0,
+                          f"mesh query {engine} {strategy} {qname}: the "
+                          "repeat was not a cache hit without a recompile")
+                r0 = ranks[0]["answers"][engine, strategy][qname]
+                log(f"mesh query {engine:9s} {strategy:11s} {qname:15s} "
+                    f"cold {max(secs['cold']):.4f} s cached "
+                    f"{max(secs['cached']):.4f} s (slowest rank)  answers "
+                    f"{r0[1]['rows']}  collectives per call (rank 0) "
+                    f"{json.dumps(r0[1]['collectives'])}  launches (4 "
+                    f"ranks) cold {json.dumps(launches['cold'])} cached "
+                    f"{json.dumps(launches['cached'])}  == one-device card "
+                    f"answer, == oracle  ({card})")
+        for strategy in (skew_answers if engine == MESH_SKEW_ENGINE
+                         else ()):
+            digest, rows = skew_answers[strategy]
+            secs = []
+            for r in ranks:
+                for i, rec in enumerate(r["answers"][engine, "skew",
+                                                     strategy]):
+                    where = (f"mesh skew BGP {engine} {strategy} call {i} "
+                             f"rank {r['rank']}")
+                    check(rec["digest"] == digest and rec["rows"] == rows,
+                          f"{where}: the answer differs from the one-device "
+                          "card answer")
+                    got = query_launch_check(rec, where)
+                    for k in INT_KERNELS:
+                        totals[k] += got[k]
+                    secs.append((i, rec["seconds"]))
+                check(r["answers"][engine, "skew", strategy][1]["hit"],
+                      f"mesh skew BGP {engine} {strategy}: the repeat was "
+                      "not a cache hit")
+            r0 = ranks[0]["answers"][engine, "skew", strategy]
+            log(f"mesh skew BGP {engine:9s} {strategy:11s} answers {rows} "
+                f"cold {max(t for i, t in secs if i == 0):.3f} s cached "
+                f"{max(t for i, t in secs if i == 1):.3f} s (slowest rank)  "
+                f"recompiles {r0[0]['recompiles']}  collectives per call "
+                f"(rank 0) {json.dumps(r0[1]['collectives'])}  launches "
+                f"(rank 0, cold) "
+                f"{json.dumps({k: r0[0]['launches'][k] for k in INT_KERNELS})}"
+                f"  == one-device card answer  ({card})")
+    want = ranks[0]["want_query_collectives"]
+    check(sum(want.values()) > 0, f"the audited query exchanges nothing: "
+          f"{want}")
+    for r in ranks:
+        for a in r["audit"]:
+            check(a["ok"] and a["host_reads"] == a["expected_host_reads"],
+                  f"mesh audit on rank {r['rank']}: {a['text']}")
+        qa = r["audit"][1]
+        check(qa["collectives"] == qa["expected"] == want,
+              f"mesh query audit on rank {r['rank']}: collectives "
+              f"{qa['collectives']}, expected {want}")
+    log(f"mesh audit (verify=\"full\", sdm auto calibrated): create_kg and "
+        f"{MESH_STORE_QUERY} clean on every rank, query collectives "
+        f"{json.dumps(want)} = expected_query_collectives  ({card})")
+
+
+def mesh_door_rank(dis, queries, store_root, streams):
+    """One rank of phase 2e′: the store leg (per engine a session over
+    ``dis`` with the store phase 2e wrote: ``create_kg`` and the two-hop
+    query; then, under sdm, the last rank's view of the store damaged),
+    then the front door over the mesh (MESH_DOOR_TENANTS private copies
+    of ``dis``, ``streams`` of requests), synchronous and worker legs.
+    Every flush's launches are read between a reset and a read."""
+    import shutil
+
+    import torch
+    from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
+    from repro_torch.api.store import read_container, write_container
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve import FrontDoor
+    mesh = make_mesh((MESH_RANKS,), ("data",))
+    out = {"rank": mesh.rank, "store": {}, "door": {}, "seconds": {}}
+    t_leg = time.perf_counter()
+
+    def store_step(engine, root):
+        clear_plan_cache()
+        eng = KGEngine(dis, config=EngineConfig(
+            engine=engine, dedup="hash", mesh=mesh, join_exchange="auto",
+            plan_store=root))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kg, st = eng.create_kg()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        ans = eng.query(queries[engine][MESH_STORE_QUERY])
+        qst = eng.stats()["query"]
+        return {"codes": kg.to_codes(), "answer": ans.to_codes(),
+                "seconds": secs, "plan_seconds": eng._last["plan_seconds"],
+                "kg_store": [st[k] for k in ("store_hits", "store_misses",
+                                             "store_rejects")],
+                "query_store": [qst[k] for k in ("store_hits",
+                                                 "store_misses",
+                                                 "store_rejects")],
+                "builds": eng.builds}
+
+    for engine in MESH_STORE_ORDER:
+        out["store"][engine] = store_step(engine, store_root)
+    view = store_root
+    if mesh.rank == MESH_RANKS - 1:
+        view = store_root + "_damaged"
+        shutil.copytree(store_root, view)
+        for name in os.listdir(view):
+            if name.endswith(".plan"):
+                path = os.path.join(view, name)
+                header, payloads = read_container(path)
+                header["meta"]["caps"] = [[i, -1] for i, _ in
+                                          header["meta"]["caps"]]
+                write_container(path, header, payloads)
+    out["store"]["damaged"] = store_step("sdm", view)
+    if view != store_root:
+        shutil.rmtree(view, ignore_errors=True)
+    out["seconds"]["store leg"] = time.perf_counter() - t_leg
+
+    for leg, window in (("sync", 0.0), ("worker", KG_SERVE_FLUSH_WINDOW)):
+        t_leg = time.perf_counter()
+        clear_plan_cache()
+        door = FrontDoor(EngineConfig(engine="sdm", dedup="hash", mesh=mesh),
+                         flush_window=window,
+                         max_batch_rows=KG_SERVE_BATCH_ROWS,
+                         max_queue=MESH_DOOR_TENANTS * MESH_DOOR_ROUNDS)
+        for t in range(MESH_DOOR_TENANTS):
+            door.register(f"tenant{t}", private_copy(dis))
+        flushes = []
+        apply = door._apply
+
+        def counted(session, merged, apply=apply, flushes=flushes):
+            reset_launch_counts()
+            secs = apply(session, merged)
+            flushes.append((session.tenant_id, secs, launch_counts()))
+            return secs
+        door._apply = counted
+        rec = {"flushes": flushes}
+        t0 = time.perf_counter()
+        if door.leader:
+            if leg == "worker":
+                door.start()
+            tickets = []
+            for r in range(MESH_DOOR_ROUNDS):
+                for t in range(MESH_DOOR_TENANTS):
+                    tickets.append(door.submit(f"tenant{t}",
+                                               streams[t][r]))
+                    if leg == "sync":
+                        door.pump(force=True)
+            door.stop(drain=True)
+            rec["seconds"] = time.perf_counter() - t0
+            rec["latency"] = [tk.result(timeout=0).latency_s
+                              for tk in tickets]
+            rec["ingest_s"] = [tk.result(timeout=0).ingest_s
+                               for tk in tickets]
+            st = door.serve_stats()
+            rec["stats"] = {k: st[k] for k in (
+                "compiles", "tenants", "shapes", "flushes", "completed",
+                "errors", "recompile_stalls")}
+            rec["rows"] = sum(p["rows"] for p in st["per_tenant"].values())
+        else:
+            door.follow()
+        rec["kg"] = {f"tenant{t}": door.kg(f"tenant{t}").to_codes()
+                     for t in range(MESH_DOOR_TENANTS)}
+        rec["role"] = door.serve_stats()["mesh"]["role"]
+        out["door"][leg] = rec
+        out["seconds"][f"door {leg} leg"] = time.perf_counter() - t_leg
+    return out
+
+
+def mesh_store_door_phase(torch, dev, card, dis, queries, writers,
+                          store_root, totals):
+    """Phase 2e′: a second spawn of MESH_RANKS ranks on the card. The
+    store leg reads back what phase 2e's ``"auto"`` sessions wrote: every
+    session a store hit on every rank with ``builds == 0``, the writers'
+    KG and answer; the damaged view on one rank makes every rank reject
+    and build, with the same KG. The front-door leg: every tenant's KG
+    equal bit for bit to a one-device card ``FrontDoor`` fed the same
+    stream at the same flush granularity here, every flush launching the
+    δ kernels on every rank."""
+    import numpy as np
+    from repro_torch.api import EngineConfig, clear_plan_cache
+    from repro_torch.data.synthetic import make_group_b_extension_records
+    from repro_torch.launch.mesh import RankError, launch_ranks
+    from repro_torch.serve import FrontDoor, percentile
+    t0 = time.perf_counter()
+    streams = [[make_group_b_extension_records(
+        KG_SERVE_BATCH_ROWS, seed=20_000 + r * MESH_DOOR_TENANTS + t)
+        for r in range(MESH_DOOR_ROUNDS)] for t in range(MESH_DOOR_TENANTS)]
+    # the one-device reference: the same stream, one request per flush
+    # (a request's rows exceed max_batch_rows, so the worker leg flushes
+    # at the same granularity)
+    clear_plan_cache()
+    ref = FrontDoor(EngineConfig(engine="sdm", dedup="hash"), device=dev,
+                    flush_window=0.0, max_batch_rows=KG_SERVE_BATCH_ROWS,
+                    max_queue=MESH_DOOR_TENANTS * MESH_DOOR_ROUNDS)
+    for t in range(MESH_DOOR_TENANTS):
+        ref.register(f"tenant{t}", private_copy(dis))
+    for r in range(MESH_DOOR_ROUNDS):
+        for t in range(MESH_DOOR_TENANTS):
+            ref.submit(f"tenant{t}", streams[t][r])
+            check(ref.pump(force=True) == 1, "mesh door reference: not one "
+                  "flush")
+    want = {f"tenant{t}": ref.kg(f"tenant{t}").to_codes()
+            for t in range(MESH_DOOR_TENANTS)}
+    ref_stats = ref.serve_stats()
+    del ref
+    log(f"mesh 2e': {MESH_DOOR_TENANTS} x {MESH_DOOR_ROUNDS} requests built "
+        f"and served by a one-device card door in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    try:
+        ranks = launch_ranks(mesh_door_rank, MESH_RANKS,
+                             timeout=MESH_TIMEOUT,
+                             args=(dis, queries, store_root, streams))
+    except RankError as e:
+        raise SmokeFailure(f"a phase 2e' rank failed: {e}") from e
+    log(f"mesh 2e': {MESH_RANKS} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s (spawn included; the slowest "
+        f"rank's legs: " + ", ".join(
+            f"{leg} {max(r['seconds'][leg] for r in ranks):.1f} s"
+            for leg in ranks[0]["seconds"]) + ")")
+    for engine in MESH_STORE_ORDER:
+        written = writers[0]["runs"][engine, "auto"]["steps"][0]
+        w_answer = writers[0]["answers"][engine, "auto"][MESH_STORE_QUERY]
+        owner = engine == ENGINES[-1]   # the query entry's last writer
+        want_q = [1, 0, 0] if owner else [0, 0, 1]
+        secs = []
+        for r in ranks:
+            got = r["store"][engine]
+            where = f"mesh store {engine} rank {r['rank']}"
+            check(got["kg_store"] == [1, 0, 0] and
+                  got["query_store"] == want_q and
+                  got["builds"] == (0 if owner else 1),
+                  f"{where}: store {got['kg_store']} {got['query_store']}, "
+                  f"builds {got['builds']}: expected a KG hit, query "
+                  f"{want_q}")
+            check(np.array_equal(got["codes"], written["codes"]) and
+                  np.array_equal(got["answer"], w_answer[0]["codes"]),
+                  f"{where}: the KG or the answer differs from the writer's")
+            secs.append(got["plan_seconds"])
+        storeless = max(r["runs"][engine, "auto"]["steps"][0]
+                        ["plan_seconds"] for r in writers)
+        log(f"mesh store {engine:9s} plan seconds storeless (phase 2e "
+            f"writer) {storeless:.3f} s, rehydrated {max(secs):.3f} s "
+            f"(slowest rank)  KG store hit, query store "
+            f"{'hit' if owner else 'reject (another engine wrote it)'}, "
+            f"builds {0 if owner else 1} on every rank, == writer's KG and "
+            f"answer  ({card})")
+    written = writers[0]["runs"]["sdm", "auto"]["steps"][0]
+    for r in ranks:
+        got = r["store"]["damaged"]
+        check(got["kg_store"][0] == 0 and got["kg_store"][2] == 1 and
+              got["builds"] >= 1 and
+              np.array_equal(got["codes"], written["codes"]),
+              f"mesh store damaged view, rank {r['rank']}: store "
+              f"{got['kg_store']}, builds {got['builds']}")
+    log(f"mesh store: rank {MESH_RANKS - 1}'s damaged entries made every "
+        f"rank reject and build, with the writer's KG  ({card})")
+    for leg in ("sync", "worker"):
+        lead = ranks[0]["door"][leg]
+        for r in ranks:
+            rec = r["door"][leg]
+            for tid, codes in want.items():
+                check(np.array_equal(rec["kg"][tid], codes),
+                      f"mesh door {leg} rank {r['rank']} {tid}: the KG "
+                      "differs from the one-device card door's")
+            check(len(rec["flushes"]) == MESH_DOOR_TENANTS *
+                  MESH_DOOR_ROUNDS, f"mesh door {leg} rank {r['rank']}: "
+                  f"{len(rec['flushes'])} flushes")
+            for tid, _s, got in rec["flushes"]:
+                check(all(got[k] > 0 for k in INT_KERNELS),
+                      f"mesh door {leg} rank {r['rank']} {tid}: a flush "
+                      f"did not launch every δ kernel: {got}")
+                for k in INT_KERNELS:
+                    totals[k] += got[k]
+        st = lead["stats"]
+        check(st["completed"] == MESH_DOOR_TENANTS * MESH_DOOR_ROUNDS and
+              st["errors"] == 0 and st["compiles"] ==
+              ref_stats["compiles"],
+              f"mesh door {leg}: {st}, one-device compiles "
+              f"{ref_stats['compiles']}")
+        ms = [t * 1e3 for _tid, t, _l in lead["flushes"]]
+        per_flush = {k: lead["flushes"][-1][2][k] for k in INT_KERNELS}
+        log(f"mesh door {leg:6s} {len(lead['latency'])} requests, "
+            f"{st['flushes']} flushes, {lead['rows']} rows in "
+            f"{lead['seconds']:.3f} s: {lead['rows'] / lead['seconds']:.0f} "
+            f"rows/s  ingest per flush median {statistics.median(ms):.1f} "
+            f"ms max {max(ms):.1f} ms  latency p50 "
+            f"{percentile(lead['latency'], 50) * 1e3:.1f} ms p99 "
+            f"{percentile(lead['latency'], 99) * 1e3:.1f} ms  compiles "
+            f"{st['compiles']} (one-device {ref_stats['compiles']})  "
+            f"recompile stalls {st['recompile_stalls']}  launches per "
+            f"flush (rank 0, last) {json.dumps(per_flush)}  == one-device "
+            f"card door's KGs on every rank  ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -2343,10 +2872,10 @@ def main() -> int:
         launches, path_shapes, main_gpu = main_path_phase(torch, dev,
                                                           workloads)
         paper_phase(torch, dev, card, workloads)
-        query_phase(torch, dev, card, workloads)
+        query_gpu = query_phase(torch, dev, card, workloads)
         verify_phase(torch, dev, card, workloads)
         mesh_launches, mesh_shapes = mesh_phase(torch, dev, card, workloads,
-                                                main_gpu)
+                                                main_gpu, query_gpu)
         serve_launches = kg_serve_phase(torch, dev, card, pristine)
         store_phase(torch, dev, card, pristine)
         del workloads, main_gpu, pristine

@@ -20,7 +20,8 @@ every port entry point, or ``cpu``. ``store`` integrity- and shape-checks
 every entry of a persistent plan store (:mod:`repro_torch.api.store`;
 ``--root`` defaults to :func:`~repro_torch.api.store.default_store_root`)
 without adopting any: container checksums, the port's envelope, the
-node-indexed metadata and the session-key payload. Exit status is
+node-indexed metadata (a mesh entry's shard layout and exchanges too) and
+the session-key payload. Exit status is
 non-zero iff any check failed.
 """
 from __future__ import annotations
@@ -79,6 +80,29 @@ def _check_dis(dis, engine: str, audit: bool, verbose: bool) -> int:
     return status
 
 
+def _check_mesh_meta(meta) -> None:
+    """A mesh entry's shard layout: every field present, the capacities
+    positive, the sink slack at least 1, and one well-formed exchange per
+    ⋈ index."""
+    missing = [k for k in ("out_cap_local", "sink_slack", "safe_exchange",
+                           "exchanges") if k not in meta]
+    if missing:
+        raise ValueError(f"mesh meta missing keys {missing}")
+    caps = list(meta["cap_locals"].values()) + [meta["out_cap_local"]]
+    if any(int(c) <= 0 for c in caps):
+        raise ValueError("non-positive shard-local capacity")
+    if float(meta["sink_slack"]) < 1.0:
+        raise ValueError(f"sink slack {meta['sink_slack']} below 1")
+    idxs = []
+    for x in meta["exchanges"]:
+        if len(x) not in (7, 8) or x[1] not in ("gather", "repartition"):
+            raise ValueError(f"malformed exchange {x!r}")
+        idxs.append(int(x[0]))
+    if any(i < 0 or i >= int(meta["node_count"]) for i in idxs) or \
+            len(set(idxs)) != len(idxs):
+        raise ValueError("exchange node index out of range or repeated")
+
+
 def _check_store(root) -> int:
     import os
 
@@ -112,10 +136,13 @@ def _check_store(root) -> int:
                     raise ValueError(f"duplicate node index in {field}")
                 if any(int(v) < 0 for _, v in pairs):
                     raise ValueError(f"negative value in {field}")
+            if "cap_locals" in meta:
+                _check_mesh_meta(meta)
             if not payloads.get(SESSION_KEY):
                 raise ValueError("entry has no session-key payload")
             print(f"{name}  ok  ({len(payloads)} payload(s), "
-                  f"{int(meta['node_count'])} nodes)")
+                  f"{int(meta['node_count'])} nodes"
+                  f"{', mesh' if 'cap_locals' in meta else ''})")
         except Exception as e:
             bad += 1
             print(f"{name}  INVALID ({e})")

@@ -318,7 +318,7 @@ def expected_host_reads(plan, engine: Optional[str] = "rmlmapper",
         sites = per_global * len(distincts)
         if engine == "sdm":
             sites += per_global * len(plan.emits()) + 1
-        else:
+        elif engine is not None:    # a query closure has no sink
             sites += 2
     else:
         distincts = {n for root in plan.emits() for n in iter_nodes(root)

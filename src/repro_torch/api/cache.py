@@ -39,15 +39,20 @@ class CachedPlan:
     #                              (answer, overflowed) for a query, or
     #                              (datas, counts) -> (kg shard, kg count,
     #                              raw, overflowed, sink overflowed) on a
-    #                              mesh
+    #                              mesh, or (data, count) -> (answer
+    #                              shard, count, overflowed) for a mesh
+    #                              query
     engine: str
     dedup: Optional[str]
     mode: str
     build_seconds: float = 0.0
     # mesh entries only: the per-source shard-local block capacities, the
-    # sink δ's bucket slack, the per-⋈ exchange decisions, and whether the
-    # exchanges were sized hard-safe
+    # rows of one rank's output block (read off the closure's first
+    # result for a KG entry; ``None`` before it), the sink δ's bucket
+    # slack, the per-⋈ exchange decisions, and whether the exchanges were
+    # sized hard-safe
     cap_locals: Optional[Dict[str, int]] = None
+    out_cap_local: Optional[int] = None
     sink_slack: float = 1.0
     exchanges: Optional[Dict[Node, object]] = None
     safe_exchange: bool = False

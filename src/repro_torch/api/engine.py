@@ -45,12 +45,15 @@ key extends to the mesh, the per-source shard-local capacity buckets and
 the exchange knob, so recompile-on-overflow and bucket-crossing ingests
 work as on one device. After each call the ranks agree on the overflow
 flags and ``raw`` (one ``all_gather``), gather the KG shards and run one
-δ over them, so every rank returns the single-device KG. Queries on a
-mesh session and plan-store entries of mesh sessions are not ported
-(ROADMAP.md Queue 1 item 7, the mesh remainder).
+δ over them, so every rank returns the single-device KG. BGP queries run
+the same way (:func:`repro_torch.query.mesh.compile_query_mesh` over this
+rank's block of the KG). Wherever a rank's next collective depends on a
+decision (the overflow flags, a plan-store hit), the ranks agree on it
+first, outside the audited call
+(:func:`repro_torch.launch.mesh.gather_values` / ``agree``).
 
-**The persistent plan store** (``plan_store=``, single device, as the
-reference's second tier behind the LRU): on a plan-cache miss the session
+**The persistent plan store** (``plan_store=``, as the reference's second
+tier behind the LRU): on a plan-cache miss the session
 looks the key up in the store (:mod:`repro_torch.api.store`) before it
 annotates, and after every build (overflow rebuilds included) it writes
 the entry back. An entry is the plan's node-indexed counts and caps, not
@@ -60,11 +63,19 @@ rehydrated metadata is verified first (``stats()["verify"]
 ["store_checks"]``). Every failure to load, verify, build or run an entry
 is one more ``store_rejects`` followed by a fresh build; caps too small
 for the data take the normal exact rebuild. Only ``jit=True`` sessions use
-the store, as in the reference.
+the store, as in the reference. On a mesh the store key names the mesh's
+axes and backend, not the rank or the card's index
+(:meth:`repro_torch.launch.mesh.Mesh.signature`), so every rank looks up
+one entry; each rank loads and checks it, and the entry is adopted only
+if every rank got a hit that passed its checks, with the same metadata
+(one agreement); otherwise every rank builds fresh. Rank 0 alone writes.
+A mesh entry and a one-device entry never adopt each other.
 """
 from __future__ import annotations
 
 import functools
+import hashlib
+import json
 import time
 import warnings
 from typing import Dict, Mapping, Optional, Tuple
@@ -73,8 +84,8 @@ import torch
 
 from repro_torch.analysis import (AuditReport, audit_closure,
                                   expected_collectives, expected_host_reads,
-                                  soundness_gate, verify_plan,
-                                  verify_query_plan)
+                                  expected_query_collectives, soundness_gate,
+                                  verify_plan, verify_query_plan)
 from repro_torch.core.rdfizer import RDFizer
 from repro_torch.core.schema import DIS, TRIPLE_ATTRS
 from repro_torch.core.transform import TransformStats, plan_mapsdi
@@ -85,9 +96,10 @@ from repro_torch.plan.explain import dump_plan, dump_root
 from repro_torch.plan.ir import fingerprint
 from repro_torch.plan.lower import LogicalPlan, lower
 from repro_torch.query import (KG_SOURCE, Query, annotate_query,
-                               compile_query, lower_query, query_session_key)
-from repro_torch.relalg import (Table, append_rows, bucket_cap, host_get,
-                                host_int)
+                               annotate_query_local, compile_query,
+                               compile_query_mesh, lower_query,
+                               query_session_key)
+from repro_torch.relalg import Table, append_rows, bucket_cap, host_int
 from repro_torch.relalg.table import pad_rows
 
 from .cache import PLAN_CACHE, CachedPlan
@@ -192,8 +204,8 @@ class KGEngine:
         ``"default"`` uses ``$REPRO_TORCH_PLAN_STORE`` /
         ``~/.cache/repro-torch-plans``; a path or a
         :class:`repro_torch.api.store.PlanStore` uses that store. Requires
-        ``jit=True`` (other sessions skip the store) and one device (a
-        mesh session with a store raises ``NotImplementedError``).
+        ``jit=True`` (other sessions skip the store); on a mesh every
+        rank passes the same store and rank 0 writes it.
     device
         ``None`` (the default) runs on the CUDA card (on a mesh: the
         mesh's device); ``"cpu"`` runs the plain PyTorch path on the CPU.
@@ -260,10 +272,6 @@ class KGEngine:
         self._verify_audits = 0
         self._verify_store_checks = 0
         self._store = resolve_store(config.plan_store)
-        if self._store is not None and self.mesh is not None:
-            raise NotImplementedError(
-                "plan-store entries of mesh sessions are not ported yet "
-                "(ROADMAP.md Queue 1 item 7, the mesh remainder)")
         self.jit = config.jit
         # hits, misses and rejects of the KG tier and the query tier
         self._store_counts = {
@@ -305,10 +313,14 @@ class KGEngine:
         # safe-capacity rebuild, later builds start safe
         self._safe_exchange = False
         # mesh closure calls, and the collectives they ran by the count
-        # expected_collectives gives each call
+        # expected_collectives (expected_query_collectives) gives each
+        # creation (query) call
         self._mesh_calls = 0
         self._mesh_collectives: Dict[str, int] = {"all_gather": 0,
                                                    "all_to_all": 0}
+        self._q_mesh_calls = 0
+        self._q_mesh_collectives: Dict[str, int] = {"all_gather": 0,
+                                                     "all_to_all": 0}
         if self.mesh is not None:
             self._check_ranks_agree()
         self._have_plan = False     # a closure has been obtained (any way)
@@ -326,6 +338,10 @@ class KGEngine:
         # surfaced as ``stats()["query"]``
         self._kg: Optional[Table] = None
         self._kg_bucket: Optional[Tuple[Table, Table]] = None
+        # mesh: this rank's block of the bucketed KG (identity-keyed), and
+        # the query tier's sticky safe-exchange escalation
+        self._kg_shard: Optional[Tuple] = None
+        self._q_safe_exchange = False
         self._q_executions = 0
         self._q_cache_hits = 0
         self._q_cache_misses = 0
@@ -443,18 +459,16 @@ class KGEngine:
         """Every rank parsed the same DIS: the plan fingerprint and the
         vocabulary size must agree across ranks (one ``all_gather``, at
         session start, outside any audited call), else raise."""
-        import torch.distributed as dist
-        mine = torch.tensor([int(self._ir_fp[:15], 16), len(self._dis.vocab)],
-                            dtype=torch.int64, device=self.device)
-        group = self.mesh.group_for(self.mesh_axis)
-        got = [torch.empty_like(mine) for _ in range(self.n_shards)]
-        dist.all_gather(got, mine, group=group)
-        seen = {tuple(int(v) for v in host_get(t)) for t in got}
-        if len(seen) != 1:
+        from repro_torch.launch.mesh import agree
+        try:
+            agree(self.mesh, self.mesh_axis,
+                  (int(self._ir_fp[:15], 16), len(self._dis.vocab)),
+                  what="the plan fingerprint prefix and the vocab size")
+        except RuntimeError as e:
             raise RuntimeError(
-                "the ranks of the mesh hold different plans or vocabularies "
-                f"(fingerprint prefix, vocab size per rank: {sorted(seen)}); "
-                "every rank must parse the same DIS from the same inputs")
+                f"the ranks of the mesh hold different plans or "
+                f"vocabularies: {e}; every rank must parse the same DIS "
+                "from the same inputs") from None
 
     def _rewrite_gate(self):
         """The optimizer's per-rewrite soundness hook (``None`` when
@@ -539,7 +553,8 @@ class KGEngine:
                            exchanges=exchanges, safe_exchange=safe_exchange)
         PLAN_CACHE.put(key, entry)
         self._builds += 1
-        self._store_save(entry)
+        if self.mesh is None:   # a mesh entry is saved after its first run
+            self._store_save(entry)
         if self._have_plan:
             self._recompiles += 1
         return entry
@@ -548,53 +563,110 @@ class KGEngine:
     def _uses_store(self) -> bool:
         return self._store is not None and self.jit
 
+    def _store_session_key(self, key: Tuple) -> Tuple:
+        """The plan-cache key as the store keys it: on a mesh, the mesh's
+        rank-free :meth:`~repro_torch.launch.mesh.Mesh.signature` in place
+        of its in-process identity (which names the rank and the device
+        index), so every rank computes one store key."""
+        if self.mesh is None:
+            return key
+        mine, shared = self.mesh.key(), self.mesh.signature()
+
+        def swap(x):
+            if x == mine:
+                return shared
+            return tuple(swap(v) for v in x) if isinstance(x, tuple) else x
+        return swap(key)
+
     def _store_save(self, entry: CachedPlan) -> None:
-        """Write a freshly built entry back to the persistent store —
-        best-effort: any serialization or IO failure is counted, never
-        raised (a full disk must not take the session down)."""
-        if not self._uses_store():
+        """Write a freshly built entry back to the persistent store (on a
+        mesh, rank 0 alone) — best-effort: any serialization or IO failure
+        is counted, never raised (a full disk must not take the session
+        down)."""
+        if not self._uses_store() or (self.mesh is not None
+                                      and self.mesh.rank != 0):
             return
         store = self._store
         try:
             env = store_envelope(self.device, self.calibration)
-            store.save(store_key(entry.key, env), env,
+            skey = self._store_session_key(entry.key)
+            store.save(store_key(skey, env), env,
                        pack_entry_meta(entry, entry.plan),
-                       {SESSION_KEY: canonical(entry.key).encode()})
+                       {SESSION_KEY: canonical(skey).encode()})
         except Exception:
             store.write_errors += 1
 
     def _store_load(self, tier: str, key: Tuple, plan, emitter, verify,
-                    build) -> Optional[CachedPlan]:
+                    build, cap_locals=None) -> Optional[CachedPlan]:
         """Second-tier lookup of ``key`` for the ``tier`` (``"kg"`` or
-        ``"query"``): validate the entry, unpack its node-indexed counts
-        and caps against ``plan`` (this process's freshly lowered DAG),
-        verify them unless ``verify="off"`` (``verify(counts, caps)``
-        returns a report), then build the closure with ``build(caps)`` —
-        no annotation. Returns ``None`` (and counts a miss or reject)
-        whenever anything is off; the caller then builds fresh, so a bad
-        store can delay but never corrupt a session."""
+        ``"query"``): validate the entry, unpack its node-indexed metadata
+        against ``plan`` (this process's freshly lowered DAG), verify it
+        unless ``verify="off"`` (``verify(counts, caps)`` returns a
+        report), then build the closure with ``build(unpacked)`` — no
+        annotation. ``cap_locals`` is what a mesh entry's shard layout
+        must be (``None`` on one device). Returns ``None`` (and counts a
+        miss or reject) whenever anything is off; the caller then builds
+        fresh, so a bad store can delay but never corrupt a session.
+
+        On a mesh the ranks then agree (one ``all_gather``): the entry is
+        adopted only if every rank got a hit that passed its checks with
+        the same metadata; otherwise every rank counts its own miss or
+        reject (a hit that a peer did not share counts as a reject) and
+        builds fresh, so no rank runs a closure another rank rejected."""
         if not self._uses_store():
             return None
-        counts = self._store_counts[tier]
+        status, entry, digest = self._store_try(key, plan, emitter, verify,
+                                                build, cap_locals)
+        if self.mesh is not None:
+            from repro_torch.launch.mesh import gather_values
+            codes = {"hit": 0, "miss": 1, "reject": 2}
+            rows = gather_values(self.mesh, self.mesh_axis,
+                                 (codes[status], digest))
+            if status == "hit" and not all(
+                    int(r[0]) == 0 and int(r[1]) == digest for r in rows):
+                status, entry = "reject", None
+                self._store._reject("a peer rank missed or rejected the "
+                                    "entry, or holds other metadata")
+        self._store_counts[tier][{"hit": "hits", "miss": "misses",
+                                  "reject": "rejects"}[status]] += 1
+        if entry is not None:
+            if entry.safe_exchange:   # keep the sticky escalation
+                if tier == "kg":
+                    self._safe_exchange = True
+                else:
+                    self._q_safe_exchange = True
+            PLAN_CACHE.put(key, entry)
+        return entry
+
+    def _store_try(self, key: Tuple, plan, emitter, verify, build,
+                   cap_locals) -> Tuple[str, Optional[CachedPlan], int]:
+        """This rank's half of :meth:`_store_load`: ``(status, entry,
+        digest)``, the digest a 62-bit tag of the adopted metadata (0
+        unless a hit)."""
         try:
             env = store_envelope(self.device, self.calibration)
-            skey = store_key(key, env)
+            skey = self._store_session_key(key)
+            hkey = store_key(skey, env)
         except TypeError:       # a non-canonical key component: no store
-            counts["rejects"] += 1
-            return None
-        res = self._store.load(skey, env)
+            return "reject", None, 0
+        res = self._store.load(hkey, env)
         if res.status != "hit":
-            counts["misses" if res.status == "miss" else "rejects"] += 1
-            return None
+            return res.status, None, 0
         t0 = time.perf_counter()
         try:
             meta = res.header["meta"]
-            if res.payloads.get(SESSION_KEY) != canonical(key).encode():
+            if res.payloads.get(SESSION_KEY) != canonical(skey).encode():
                 raise ValueError("session key mismatch")
             if meta.get("engine") != self.engine or \
                     meta.get("dedup") != self.dedup:
                 raise ValueError("entry engine/dedup mismatch")
             unpacked = unpack_entry_meta(meta, plan)
+            if ("cap_locals" in unpacked) != (self.mesh is not None):
+                raise ValueError("mesh/single-device entry mismatch")
+            if cap_locals is not None and \
+                    unpacked["cap_locals"] != dict(cap_locals):
+                raise ValueError("stored shard layout differs from the "
+                                 "session's")
             if any(c < 0 for c in unpacked["caps"].values()):
                 # not a closure that can be built, whatever ``verify`` says
                 raise ValueError("negative stored capacity")
@@ -609,20 +681,26 @@ class KGEngine:
                         "stored plan metadata failed static verification: "
                         + "; ".join(str(d) for d in report.diagnostics[:3]))
                 self._verify_store_checks += 1
-            fn = build(unpacked["caps"])
+            fn = build(unpacked)
         except Exception as e:  # rehydration failure degrades to a build
-            counts["rejects"] += 1
             self._store._reject(f"rehydrate: {type(e).__name__}: {e}")
-            return None
-        counts["hits"] += 1
+            return "reject", None, 0
         entry = CachedPlan(key=key, plan=plan, emitter=emitter,
                            counts=unpacked["counts"], caps=unpacked["caps"],
                            fn=fn, engine=self.engine, dedup=self.dedup,
                            mode=unpacked["mode"],
                            build_seconds=time.perf_counter() - t0,
+                           cap_locals=unpacked.get("cap_locals"),
+                           out_cap_local=unpacked.get("out_cap_local"),
+                           sink_slack=unpacked.get("sink_slack", 1.0),
+                           exchanges=unpacked.get("exchanges"),
+                           safe_exchange=unpacked.get("safe_exchange",
+                                                      False),
                            origin="store")
-        PLAN_CACHE.put(key, entry)
-        return entry
+        tagged = {k: v for k, v in meta.items() if k != "build_seconds"}
+        digest = int.from_bytes(hashlib.sha256(json.dumps(
+            tagged, sort_keys=True).encode()).digest()[:8], "big") >> 2
+        return "hit", entry, digest
 
     def _store_run_failed(self, tier: str, err: Exception) -> None:
         """A rehydrated entry whose closure failed to run here: one more
@@ -638,21 +716,38 @@ class KGEngine:
             self._cache_hits += 1
         else:
             self._cache_misses += 1
-            plan = self._slim_plan()
             entry = self._store_load(
-                "kg", key, plan, self._emitter,
+                "kg", key, self._slim_plan(), self._emitter,
                 lambda counts, caps: verify_plan(
                     self._plan, self.engine, counts=counts, caps=caps,
-                    sources=sources, slack=self.slack,
-                    check_canonical=self.optimize, check_cse=self.optimize),
-                lambda caps: compile_plan(plan, self._emitter,
-                                          engine=self.engine,
-                                          dedup=self.dedup, caps=caps,
-                                          report_overflow=True))
+                    sources=sources, shard_local=self.mesh is not None,
+                    slack=self.slack, check_canonical=self.optimize,
+                    check_cse=self.optimize),
+                self._rebuild_kg_closure,
+                cap_locals=(None if self.mesh is None
+                            else self._cap_locals(sources)))
             if entry is None:
                 entry = self._build(key, sources)
         self._have_plan = True
         return entry, hit
+
+    def _rebuild_kg_closure(self, unpacked: Mapping[str, object]):
+        """The KG closure of a store entry, built from its stored caps
+        (and, on a mesh, its shard layout and exchanges)."""
+        plan = self._slim_plan()
+        if self.mesh is None:
+            return compile_plan(plan, self._emitter, engine=self.engine,
+                                dedup=self.dedup, caps=unpacked["caps"],
+                                report_overflow=True)
+        from repro_torch.plan.mesh import compile_mesh_plan
+        return compile_mesh_plan(
+            plan, self._emitter, self.mesh, self.mesh_axis,
+            engine=self.engine, dedup=self.dedup, caps=unpacked["caps"],
+            cap_locals=unpacked["cap_locals"],
+            sink_slack=unpacked["sink_slack"],
+            pack_u16=len(self._dis.vocab) < (1 << 16),
+            exchanges=unpacked["exchanges"],
+            safe_exchange=unpacked["safe_exchange"])
 
     # -- execution -----------------------------------------------------------
     def _execute(self, step, args, fresh: bool, **expect):
@@ -804,8 +899,11 @@ class KGEngine:
         one ``all_gather`` of (raw, overflowed, sink overflowed, KG count)
         and one counted host read of it, both after the (audited) call.
         Returns ``(kg shard, KG counts per rank, raw, overflowed, sink
-        overflowed)`` with the last three summed / or-ed over ranks."""
-        import torch.distributed as dist
+        overflowed)`` with the last three summed / or-ed over ranks. The
+        first call of a freshly built entry gives its ``out_cap_local``
+        (the rows of its output block), and then the entry is written to
+        the plan store."""
+        from repro_torch.launch.mesh import gather_values
         datas, counts = self._shard_sources(sources, entry.cap_locals)
         self._mesh_calls += 1
         for name, k in expected_collectives(
@@ -819,13 +917,14 @@ class KGEngine:
             expected_host_reads=functools.partial(
                 expected_host_reads, entry.plan, self.engine, self.dedup,
                 n_shards=self.n_shards))
-        mine = torch.stack([raw.to(torch.int32), over.to(torch.int32),
-                            sink_over.to(torch.int32),
-                            kg_c.to(torch.int32)])
-        got = [torch.empty_like(mine) for _ in range(self.n_shards)]
-        dist.all_gather(got, mine,
-                        group=self.mesh.group_for(self.mesh_axis))
-        agreed = host_get(torch.stack(got))          # [n_shards, 4]
+        if entry.out_cap_local is None:
+            # written before the agreement, so a peer that passes it finds
+            # the entry on disk
+            entry.out_cap_local = int(kg_d.shape[0])
+            self._store_save(entry)
+        agreed = gather_values(self.mesh, self.mesh_axis, torch.stack([
+            raw.to(torch.int32), over.to(torch.int32),
+            sink_over.to(torch.int32), kg_c.to(torch.int32)]))
         return (kg_d, [int(c) for c in agreed[:, 3]], int(agreed[:, 0].sum()),
                 bool(agreed[:, 1].any()), bool(agreed[:, 2].any()))
 
@@ -845,7 +944,7 @@ class KGEngine:
         from repro_torch.relalg import distinct
         from repro_torch.relalg.table import round_cap
         kg_d, kg_counts, raw, over, sink_over = self._run_mesh_entry(
-            entry, sources, fresh=not hit)
+            entry, sources, fresh=not hit and entry.origin == "build")
         for _ in range(2):   # ≤1 capacity recompile + ≤1 sink-slack growth
             if not (over or sink_over):
                 break
@@ -880,18 +979,12 @@ class KGEngine:
         return kg, raw_t, entry, hit
 
     # -- queries -------------------------------------------------------------
-    def _no_mesh_queries(self, what: str) -> None:
-        if self.mesh is not None:
-            raise NotImplementedError(
-                f"KGEngine.{what} on a mesh session is not ported yet "
-                "(ROADMAP.md Queue 1 item 7, the mesh remainder)")
-
     def _kg_table(self, kg: Optional[Table]) -> Table:
         """Resolve + bucket the KG table a query reads: the session KG by
         default (materialized on first use), an explicit ``kg=`` override
         (moved to the session device) otherwise. The bucketed view is
         cached on the KG object's identity, so repeated queries over one
-        KG share a buffer."""
+        KG share a buffer (and, on a mesh, this rank's block)."""
         if kg is None:
             if self._kg is None:
                 self.run()          # materialize the session KG first
@@ -906,35 +999,102 @@ class KGEngine:
         self._kg_bucket = (kg, bucketed)
         return bucketed
 
+    def _kg_cap_local(self, kg: Table) -> int:
+        """One rank's block capacity of the bucketed KG: the bucket of
+        ``ceil(capacity / n)``."""
+        return bucket_cap(-(-kg.capacity // self.n_shards))
+
+    def _shard_kg(self, table: Table, cap_local: int) -> Tuple:
+        """This rank's block of the bucketed KG, cached on the table
+        object's identity (a fresh KG from run()/ingest() re-shards)."""
+        hit = self._kg_shard
+        if hit is not None and hit[0] is table and hit[1] == cap_local:
+            return hit[2], hit[3]
+        from repro_torch.core.distributed import shard_table
+        d, c, _ = shard_table(table, self.mesh, self.mesh_axis,
+                              cap_local=cap_local)
+        self._kg_shard = (table, cap_local, d, c)
+        return d, c
+
+    def _query_mesh_sig(self, kg: Table) -> Optional[Tuple]:
+        """Query analogue of :meth:`_mesh_sig`: the same static mesh
+        identity and exchange/calibration components, with the KG's
+        shard-local capacity bucket as the (single) source term."""
+        if self.mesh is None:
+            return None
+        cal_sig = (None if self.calibration is None
+                   else self.calibration.signature())
+        return self._mesh_static + (
+            self._kg_cap_local(kg), len(self._dis.vocab) < (1 << 16),
+            self.join_exchange, cal_sig)
+
     def _query_key(self, query: Query, kg: Table) -> Tuple:
         c = self.config
         return query_session_key(query, dedup=c.dedup, mode=c.mode,
                                  slack=c.slack, jit=c.jit,
-                                 kg_bucket_cap=kg.capacity, mesh_sig=None)
+                                 kg_bucket_cap=kg.capacity,
+                                 mesh_sig=self._query_mesh_sig(kg))
+
+    def _annotate_query(self, qplan, kg: Table, mode: str,
+                        safe_exchange: bool):
+        """(counts, caps, exchanges) of a query over ``kg``: global on one
+        device (``exchanges`` None), shard-local on a mesh."""
+        sources = {KG_SOURCE: kg}
+        if self.mesh is None:
+            counts, caps = annotate_query(qplan, sources, mode=mode,
+                                          slack=self.slack,
+                                          cap_fn=bucket_cap)
+            return counts, caps, None
+        return annotate_query_local(
+            qplan, n_shards=self.n_shards,
+            cap_locals={KG_SOURCE: self._kg_cap_local(kg)}, mode=mode,
+            slack=self.slack, cap_fn=bucket_cap, sources=sources,
+            join_exchange=self.join_exchange, safe_exchange=safe_exchange,
+            calibration=self.calibration)
+
+    def _compile_query(self, qplan, kg: Table, caps, exchanges,
+                       safe_exchange: bool):
+        """The query closure over ``caps``: single-device, or this rank's
+        mesh closure (then with its ``out_cap_local``)."""
+        if self.mesh is None:
+            return compile_query(qplan, dedup=self.dedup, caps=caps), None
+        return compile_query_mesh(
+            qplan, self.mesh, self.mesh_axis, dedup=self.dedup, caps=caps,
+            cap_local=self._kg_cap_local(kg),
+            pack_u16=len(self._dis.vocab) < (1 << 16), exchanges=exchanges,
+            safe_exchange=safe_exchange)
 
     def _build_query(self, key: Tuple, qplan, kg: Table,
                      mode: Optional[str] = None,
-                     floor_caps: Optional[Mapping] = None) -> CachedPlan:
-        """Query sibling of :meth:`_build`: annotate, statically verify,
-        compile the single-device closure and write it back to the plan
-        store."""
+                     floor_caps: Optional[Mapping] = None,
+                     safe_exchange: bool = False) -> CachedPlan:
+        """Query sibling of :meth:`_build`: annotate (globally, or
+        shard-locally on a mesh), statically verify, compile and write the
+        entry back to the plan store."""
         t0 = time.perf_counter()
-        sources = {KG_SOURCE: kg}
-        counts, caps = annotate_query(qplan, sources,
-                                      mode=mode or self.mode,
-                                      slack=self.slack, cap_fn=bucket_cap)
+        safe_exchange = (safe_exchange or self._q_safe_exchange) \
+            and self.mesh is not None
+        self._q_safe_exchange = safe_exchange
+        counts, caps, exchanges = self._annotate_query(
+            qplan, kg, mode or self.mode, safe_exchange)
         if floor_caps:  # growth must be monotone or overflow ping-pongs
             caps = {n: max(c, floor_caps.get(n, 0)) for n, c in caps.items()}
         if self.verify != "off":
             verify_query_plan(qplan, counts=counts, caps=caps,
-                              sources=sources,
+                              sources={KG_SOURCE: kg},
+                              shard_local=self.mesh is not None,
                               slack=self.slack).raise_for_status()
             self._verify_plan_checks += 1
-        fn = compile_query(qplan, dedup=self.dedup, caps=caps)
+        fn, out_cap_local = self._compile_query(qplan, kg, caps, exchanges,
+                                                safe_exchange)
         entry = CachedPlan(key=key, plan=qplan, emitter=None, counts=counts,
                            caps=caps, fn=fn, engine=self.engine,
                            dedup=self.dedup, mode=mode or self.mode,
-                           build_seconds=time.perf_counter() - t0)
+                           build_seconds=time.perf_counter() - t0,
+                           cap_locals=(None if self.mesh is None else
+                                       {KG_SOURCE: self._kg_cap_local(kg)}),
+                           out_cap_local=out_cap_local, exchanges=exchanges,
+                           safe_exchange=safe_exchange)
         PLAN_CACHE.put(key, entry)
         self._builds += 1
         self._store_save(entry)
@@ -960,14 +1120,14 @@ class KGEngine:
         The query goes through the same machinery as creation: lowered to
         the relational IR (:func:`repro_torch.query.lower_query`),
         annotated with capacities, compiled to one closure on the session
-        device, and cached in the process-wide plan cache under its own
+        device (on a mesh, one per-rank closure over this rank's block of
+        the KG), and cached in the process-wide plan cache under its own
         structural-fingerprint key tier. A truncation flag triggers one
         exact recompile at floored capacities, as in :meth:`run`.
 
         ``kg`` defaults to the session KG (materialized via :meth:`run` on
         first use); pass an explicit coded triple table to query something
         else (it shares the session's vocab codes by construction)."""
-        self._no_mesh_queries("query")
         t0 = time.perf_counter()
         table = self._kg_table(kg)
         qplan = lower_query(q)
@@ -983,13 +1143,34 @@ class KGEngine:
                 "query", key, qplan, None,
                 lambda counts, caps: verify_query_plan(
                     qplan, counts=counts, caps=caps, sources=sources,
-                    slack=self.slack),
-                lambda caps: compile_query(qplan, dedup=self.dedup,
-                                           caps=caps))
+                    shard_local=self.mesh is not None, slack=self.slack),
+                lambda unpacked: self._compile_query(
+                    qplan, table, unpacked["caps"],
+                    unpacked.get("exchanges"),
+                    unpacked.get("safe_exchange", False))[0],
+                cap_locals=(None if self.mesh is None else
+                            {KG_SOURCE: self._kg_cap_local(table)}))
             if entry is None:
                 entry = self._build_query(key, qplan, table)
         plan_s = time.perf_counter() - t0
         t1 = time.perf_counter()
+        if self.mesh is not None:
+            result, entry, hit = self._run_query_mesh(entry, qplan, table,
+                                                      hit)
+        else:
+            result, entry, hit = self._run_query_one(entry, qplan, table,
+                                                     hit)
+        self._q_executions += 1
+        self._q_last = {"entry": entry, "cache_hit": hit,
+                        "plan_seconds": plan_s,
+                        "exec_seconds": time.perf_counter() - t1}
+        return result
+
+    def _run_query_one(self, entry: CachedPlan, qplan, table: Table,
+                       hit: bool):
+        """Execute the single-device query closure; on overflow, one exact
+        recompile at floored capacities."""
+        sources = {KG_SOURCE: table}
         try:
             result, over = self._run_query_entry(
                 entry, sources, fresh=not hit and entry.origin == "build")
@@ -999,41 +1180,102 @@ class KGEngine:
                 raise
             self._store_run_failed("query", e)
             hit = False
-            entry = self._build_query(key, qplan, table)
+            entry = self._build_query(entry.key, qplan, table)
             result, over = self._run_query_entry(entry, sources, fresh=True)
         if over:
             hit = False   # the hit did not actually serve this query
             self._q_recompiles += 1
-            entry = self._build_query(key, qplan, table, mode="exact",
+            entry = self._build_query(entry.key, qplan, table, mode="exact",
                                       floor_caps=entry.caps)
             result, over = self._run_query_entry(entry, sources, fresh=True)
             if over:  # exact caps cannot under-size
                 raise RuntimeError("query capacity overflow persisted "
                                    "after recompile — please report")
-        self._q_executions += 1
-        self._q_last = {"entry": entry, "cache_hit": hit,
-                        "plan_seconds": plan_s,
-                        "exec_seconds": time.perf_counter() - t1}
-        return result
+        return result, entry, hit
+
+    def _run_query_mesh_entry(self, entry: CachedPlan, table: Table,
+                              fresh: bool):
+        """One call of the per-rank query closure over this rank's block
+        of the KG, then the ranks' agreement: one ``all_gather`` of
+        (overflowed, answer count) and one counted host read, after the
+        (audited) call. Returns ``(answer shard, answer counts per rank,
+        overflowed on any rank)``."""
+        from repro_torch.launch.mesh import gather_values
+        data, count = self._shard_kg(table, entry.cap_locals[KG_SOURCE])
+        want = expected_query_collectives(entry.plan, self.n_shards,
+                                          exchanges=entry.exchanges)
+        self._q_mesh_calls += 1
+        for name, k in want.items():
+            self._q_mesh_collectives[name] += k
+        out_d, out_c, over = self._execute(
+            entry.fn, (data, count), fresh, n_shards=self.n_shards,
+            expected_counts=want,
+            expected_host_reads=functools.partial(
+                expected_host_reads, entry.plan, None, self.dedup,
+                n_shards=self.n_shards))
+        agreed = gather_values(self.mesh, self.mesh_axis, torch.stack([
+            over.to(torch.int32), out_c.to(torch.int32)]))
+        return out_d, [int(c) for c in agreed[:, 1]], bool(agreed[:, 0].any())
+
+    def _run_query_mesh(self, entry: CachedPlan, qplan, table: Table,
+                        hit: bool):
+        """Execute the per-rank query closure; mirrors :meth:`_run_mesh`:
+        every rank takes the same branch (the flags are agreed first), an
+        overflow rebuilds once with exact caps and hard-safe exchange
+        buckets, then the answer shards are gathered and one δ over them
+        puts the rows in the single-device answer's order — which makes
+        the mesh answer bit-identical to the single-device one."""
+        import torch.distributed as dist
+
+        from repro_torch.core.distributed import unshard_rows
+        from repro_torch.relalg import distinct
+        from repro_torch.relalg.table import round_cap
+        out_d, out_counts, over = self._run_query_mesh_entry(
+            entry, table, fresh=not hit and entry.origin == "build")
+        if over:
+            hit = False   # the hit did not actually serve this query
+            self._q_recompiles += 1
+            entry = self._build_query(entry.key, qplan, table, mode="exact",
+                                      floor_caps=entry.caps,
+                                      safe_exchange=True)
+            out_d, out_counts, over = self._run_query_mesh_entry(
+                entry, table, fresh=True)
+            if over:   # exact caps + safe buckets cannot under-size
+                raise RuntimeError("mesh query capacity overflow persisted "
+                                   "after recompile — please report")
+        shards = [torch.empty_like(out_d) for _ in range(self.n_shards)]
+        dist.all_gather(shards, out_d.contiguous(),
+                        group=self.mesh.group_for(self.mesh_axis))
+        rows = unshard_rows(torch.cat(shards), out_counts, out_d.shape[0])
+        total = rows.shape[0]
+        result = distinct(Table(data=pad_rows(rows, round_cap(total)),
+                                count=torch.full((), total,
+                                                 dtype=torch.int32,
+                                                 device=self.device),
+                                attrs=entry.plan.out_attrs),
+                          dedup=self.dedup)
+        return result, entry, hit
 
     def explain_query(self, q: Query, kg: Optional[Table] = None) -> str:
         """Annotated query-plan tree — the query analogue of
         :meth:`explain`: per-node rows/caps from the session's annotation
-        mode over the KG the query would read, with the verifier's verdict
-        and ``cols=`` unless ``verify="off"``."""
-        self._no_mesh_queries("explain_query")
+        mode over the KG the query would read (shard-local on a mesh, with
+        each ⋈'s exchange decision and wire-byte estimates), with the
+        verifier's verdict and ``cols=`` unless ``verify="off"``."""
         table = self._kg_table(kg)
         qplan = lower_query(q)
-        sources = {KG_SOURCE: table}
-        counts, caps = annotate_query(qplan, sources, mode=self.mode,
-                                      slack=self.slack, cap_fn=bucket_cap)
+        counts, caps, exchanges = self._annotate_query(
+            qplan, table, self.mode, self._q_safe_exchange)
         schemas = verdict = None
         if self.verify != "off":
             report = verify_query_plan(qplan, counts=counts, caps=caps,
-                                       sources=sources, slack=self.slack)
+                                       sources={KG_SOURCE: table},
+                                       shard_local=self.mesh is not None,
+                                       slack=self.slack)
             schemas, verdict = report.schemas, report.describe()
         return dump_root(qplan.root, counts=counts, caps=caps,
-                         schemas=schemas, verdict=verdict)
+                         exchanges=exchanges, schemas=schemas,
+                         verdict=verdict)
 
     # -- stats ---------------------------------------------------------------
     @property
@@ -1087,7 +1329,10 @@ class KGEngine:
             "mesh": (None if self.mesh is None else
                      dict(self.mesh.describe(), axis=self.mesh_axis,
                           calls=self._mesh_calls,
-                          collectives=dict(self._mesh_collectives))),
+                          collectives=dict(self._mesh_collectives),
+                          query_calls=self._q_mesh_calls,
+                          query_collectives=dict(
+                              self._q_mesh_collectives))),
             "cost_model": ("static" if self.calibration is None
                            else self.calibration.source),
             "calibration": (None if self.calibration is None else {

@@ -23,6 +23,12 @@ Three design points differ from the reference's ``repro.api.store``:
 * **The envelope belongs to the session's device**, not to the process
   (:func:`store_envelope`): a CPU session and a card session in one
   process never share an entry.
+* **A mesh entry is one per mesh, not per rank.** The port's mesh is one
+  process per rank, so the session key of a mesh session names the
+  mesh's axes and backend (:meth:`repro_torch.launch.mesh.Mesh.signature`),
+  not the rank or the card's index; every rank loads and checks the
+  entry, the ranks adopt it only together, and rank 0 alone writes
+  (:class:`~repro_torch.api.KGEngine`).
 * **Stored caps are what the closure runs with.** The reference adopts
   an intact executable whatever its stored metadata says (under
   ``verify="off"``); the port builds the closure from the stored caps.
@@ -222,18 +228,16 @@ def read_container(path: str) -> Tuple[Dict[str, object], Dict[str, bytes]]:
 # ---------------------------------------------------------------------------
 
 def pack_entry_meta(entry, plan) -> Dict[str, object]:
-    """Serialize a single-device :class:`~repro_torch.api.cache.CachedPlan`'s
-    node-keyed metadata as :func:`repro_torch.plan.ir.node_order` index
-    lists (the order is fingerprint-stable, so a same-key process maps
-    indices back onto its own freshly lowered nodes). Mesh entries are not
-    stored yet (ROADMAP.md Queue 1 item 7, the mesh remainder)."""
+    """Serialize a :class:`~repro_torch.api.cache.CachedPlan`'s node-keyed
+    metadata as :func:`repro_torch.plan.ir.node_order` index lists (the
+    order is fingerprint-stable, so a same-key process maps indices back
+    onto its own freshly lowered nodes). A mesh entry adds its shard
+    layout: the shard-local source capacities, the rows of one rank's
+    output block, the sink slack, ``safe_exchange`` and every ⋈'s
+    exchange decision, as the reference writes them."""
     from repro_torch.plan.ir import node_order
-    if entry.cap_locals is not None:
-        raise NotImplementedError(
-            "plan-store entries of mesh sessions are not ported yet "
-            "(ROADMAP.md Queue 1 item 7, the mesh remainder)")
     index = {n: i for i, n in enumerate(node_order(plan.emits()))}
-    return {
+    meta: Dict[str, object] = {
         "node_count": len(index),
         "engine": entry.engine,
         "dedup": entry.dedup,
@@ -243,26 +247,57 @@ def pack_entry_meta(entry, plan) -> Dict[str, object]:
                          for n, v in entry.counts.items()),
         "caps": sorted([index[n], int(v)] for n, v in entry.caps.items()),
     }
+    if entry.cap_locals is not None:      # mesh entry: shard layout
+        meta["cap_locals"] = {k: int(v)
+                              for k, v in sorted(entry.cap_locals.items())}
+        meta["out_cap_local"] = int(entry.out_cap_local)
+        meta["sink_slack"] = float(entry.sink_slack)
+        meta["safe_exchange"] = bool(entry.safe_exchange)
+        meta["exchanges"] = sorted(
+            [index[n], x.strategy, int(x.gather_bytes),
+             int(x.repartition_bytes), float(x.gather_seconds),
+             float(x.repartition_seconds),
+             getattr(x, "cost_source", "static"),
+             int(getattr(x, "parent_fanout", 1))]
+            for n, x in (entry.exchanges or {}).items())
+    return meta
 
 
 def unpack_entry_meta(meta: Mapping[str, object], plan) -> Dict[str, object]:
     """Rebuild node-keyed dicts against *this* process's plan nodes;
     raises ``ValueError`` when the stored indices do not fit the local
-    plan (a corrupted or key-colliding entry must reject, not mis-map)
-    or when the entry is a mesh entry."""
+    plan (a corrupted or key-colliding entry must reject, not mis-map).
+    A mesh entry's result also holds ``cap_locals``, ``out_cap_local``,
+    ``sink_slack``, ``safe_exchange`` and ``exchanges`` (node ->
+    :class:`repro_torch.plan.annotate.JoinExchange`)."""
+    from repro_torch.plan.annotate import JoinExchange
     from repro_torch.plan.ir import node_order
-    if "cap_locals" in meta:
-        raise ValueError("mesh/single-device entry mismatch")
     order = node_order(plan.emits())
     if int(meta["node_count"]) != len(order):
         raise ValueError("stored node metadata does not match the plan "
                          f"({meta['node_count']} nodes vs {len(order)})")
-    return {
+    out: Dict[str, object] = {
         "counts": {order[i]: int(v) for i, v in meta["counts"]},
         "caps": {order[i]: int(v) for i, v in meta["caps"]},
         "mode": meta["mode"],
         "build_seconds": float(meta["build_seconds"]),
     }
+    if "cap_locals" in meta:
+        out["cap_locals"] = {str(k): int(v)
+                             for k, v in sorted(meta["cap_locals"].items())}
+        out["out_cap_local"] = int(meta["out_cap_local"])
+        out["sink_slack"] = float(meta["sink_slack"])
+        out["safe_exchange"] = bool(meta["safe_exchange"])
+        out["exchanges"] = {
+            order[i]: JoinExchange(strategy=s, gather_bytes=int(gb),
+                                   repartition_bytes=int(rb),
+                                   gather_seconds=float(gs),
+                                   repartition_seconds=float(rs),
+                                   cost_source=str(src),
+                                   parent_fanout=int(rest[0]) if rest else 1)
+            for i, s, gb, rb, gs, rs, src, *rest
+            in meta.get("exchanges", [])}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +492,9 @@ def resolve_store(plan_store) -> Optional[PlanStore]:
 
 def _populate(root: str, n_rows: int, device: DeviceLike) -> int:
     """Build the standard smoke configurations into ``root`` (every
-    engine × dedup on one device) — a separate process then finds them as
-    store hits."""
+    engine × dedup on one device, plus a mesh session: the reference's
+    spans every device of its process, the port's is a one-rank mesh in
+    this process) — a separate process then finds them as store hits."""
     from repro_torch.api.config import EngineConfig
     from repro_torch.api.engine import KGEngine
     from repro_torch.api.store import PlanStore as _PlanStore   # NOT the
@@ -476,6 +512,12 @@ def _populate(root: str, n_rows: int, device: DeviceLike) -> int:
                                                    plan_store=store),
                                device=device)
             session.create_kg()
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1,), ("data",), device=device)
+    session = KGEngine(make_group_b_dis(n_rows, 0.6, seed=0, device=device),
+                       config=EngineConfig(engine="sdm", dedup="hash",
+                                           mesh=mesh, plan_store=store))
+    session.create_kg()
     print(json.dumps(store.stats(), indent=1))
     return 0 if store.writes > 0 and store.write_errors == 0 else 1
 

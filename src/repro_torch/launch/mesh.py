@@ -72,6 +72,14 @@ class Mesh:
         return (tuple(self.shape.items()), self.rank, str(self.device),
                 self.backend)
 
+    def signature(self) -> Tuple:
+        """Identity of this mesh in plan-store keys: the axes (so the
+        rank count) and the backend, with no rank and no device index, so
+        every rank of a mesh — and a rank on ``cuda:1`` as on ``cuda:0``
+        — computes one key for one plan. The store's envelope adds the
+        card's name."""
+        return (tuple(self.shape.items()), self.backend)
+
     def describe(self) -> Dict[str, object]:
         return {"shape": dict(self.shape), "rank": self.rank,
                 "device": str(self.device), "backend": self.backend}
@@ -86,12 +94,17 @@ def backend_for(device_type: str, n_ranks: int) -> str:
     return "gloo"
 
 
+#: whether this process's group is the in-process one-rank group
+_IN_PROCESS: List[bool] = [False]
+
+
 def _one_rank_group() -> None:
     """The in-process one-rank group: ``init_process_group`` runs once per
     process, so it is created on first use and reused."""
     if not dist.is_initialized():
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                                 world_size=1)
+        _IN_PROCESS[0] = True
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str],
@@ -108,7 +121,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"shape {shape} and axes {axes} differ in length")
     n = math.prod(shape)
     dev = resolve_device(device)
-    if not dist.is_initialized():
+    if not dist.is_initialized() or _IN_PROCESS[0]:
         if n != 1:
             raise ValueError(f"a {n}-rank mesh needs {n} processes: start "
                              "them with launch_ranks")
@@ -129,6 +142,47 @@ def make_local_mesh(model: int = 1, data: Optional[int] = None,
     n = dist.get_world_size() if dist.is_initialized() else 1
     data = data if data is not None else max(1, n // model)
     return make_mesh((data, model), ("data", "model"), device=device)
+
+
+# ---------------------------------------------------------------------------
+# agreement: every rank takes the same decision before its next collective
+# ---------------------------------------------------------------------------
+
+def gather_values(mesh: Mesh, axis: str, values) -> np.ndarray:
+    """Every rank's ``values`` (a sequence of ints, or a 1-d integer
+    tensor on the mesh's device), as an ``[n_ranks, k]`` int64 array on
+    every rank: one ``all_gather`` of a small tensor and one counted host
+    read (:func:`repro_torch.relalg.host_get`). Every rank of ``axis``
+    must call it together, with the same ``k``."""
+    from repro_torch.relalg import host_get
+    if isinstance(values, torch.Tensor):
+        mine = values.reshape(-1).to(device=mesh.device, dtype=torch.int64)
+    else:
+        mine = torch.tensor([int(v) for v in values], dtype=torch.int64,
+                            device=mesh.device)
+    n = int(mesh.shape[axis])
+    got = [torch.empty_like(mine) for _ in range(n)]
+    dist.all_gather(got, mine, group=mesh.group_for(axis))
+    return host_get(torch.stack(got))
+
+
+def agree(mesh: Mesh, axis: str, values, what: str = "values"
+          ) -> Tuple[int, ...]:
+    """Check that every rank holds the same ``values`` (see
+    :func:`gather_values`) and return them; raise ``RuntimeError`` naming
+    each rank's values otherwise. Wherever a rank's next collective
+    depends on a decision — a plan, a store hit, a flush — the ranks
+    agree on it first, outside any audited call: a rank that decided
+    differently would hang in the next exchange, or exchange buffers of
+    another size."""
+    rows = gather_values(mesh, axis, values)
+    first = tuple(int(v) for v in rows[0])
+    if any(tuple(int(v) for v in row) != first for row in rows):
+        per_rank = ", ".join(f"rank {r}: {tuple(int(v) for v in row)}"
+                             for r, row in enumerate(rows))
+        raise RuntimeError(f"the ranks of the mesh disagree on {what} "
+                           f"({per_rank})")
+    return first
 
 
 # ---------------------------------------------------------------------------

@@ -8,18 +8,17 @@ here:
 * :class:`Query` / :class:`TriplePattern` / :class:`QueryFilter` — the BGP
   spec (:mod:`repro_torch.query.spec`, also the query cache-key module).
 * :func:`lower_query` — spec → IR DAG (:mod:`repro_torch.query.lower`).
-* :func:`annotate_query` — capacity annotation
-  (:mod:`repro_torch.query.annotate`).
-* :func:`compile_query` — the single-device closure.
+* :func:`annotate_query` / :func:`annotate_query_local` — capacity
+  annotation (:mod:`repro_torch.query.annotate`).
+* :func:`compile_query` / :func:`compile_query_mesh` — the single-device
+  closure and the per-rank mesh closure.
 
-Served by :meth:`repro_torch.api.KGEngine.query`. The mesh forms
-(``annotate_query_local``, ``compile_query_mesh`` and
-``query_mesh_abstract_inputs``) wait for the mesh queries (ROADMAP.md
-Queue 1 item 7, the mesh remainder).
+Served by :meth:`repro_torch.api.KGEngine.query`.
 """
-from .annotate import annotate_query
+from .annotate import annotate_query, annotate_query_local
 from .compile import compile_query
 from .lower import QueryPlan, lower_query, query_scan
+from .mesh import compile_query_mesh, query_mesh_abstract_inputs
 from .spec import (KG_SOURCE, Query, QueryFilter, TriplePattern,
                    query_session_key)
 
@@ -30,8 +29,11 @@ __all__ = [
     "QueryPlan",
     "TriplePattern",
     "annotate_query",
+    "annotate_query_local",
     "compile_query",
+    "compile_query_mesh",
     "lower_query",
+    "query_mesh_abstract_inputs",
     "query_scan",
     "query_session_key",
 ]

@@ -168,8 +168,7 @@ def lower_query(query: Query) -> QueryPlan:
 
 def query_scan(plan: QueryPlan) -> Scan:
     """The (single) KG Scan of a lowered query — what the mesh compiler
-    shards. Kept for parity with the reference: nothing in the
-    single-device port calls it until the mesh query path lands."""
+    (:func:`repro_torch.query.mesh.compile_query_mesh`) shards."""
     for node in iter_nodes(plan.root):
         if isinstance(node, Scan):
             return node

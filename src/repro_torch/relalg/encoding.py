@@ -37,6 +37,14 @@ class Vocab:
         out._to_value = list(self._to_value)
         return out
 
+    def truncate(self, n: int) -> None:
+        """Forget every id ``>= n``: the rollback of values interned for
+        rows that were then dropped (a mesh front door's skipped flush),
+        so the ids stay equal to every other rank's."""
+        for value in self._to_value[n:]:
+            del self._to_id[value]
+        del self._to_value[n:]
+
     def intern(self, value: Hashable) -> int:
         vid = self._to_id.get(value)
         if vid is None:

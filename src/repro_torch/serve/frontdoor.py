@@ -34,8 +34,27 @@ engine.device)``), and the worker runs each flush under that device's
 CUDA context, since the current device is per thread. A ticket's
 ``latency_s`` ends after the device work without a sync of the door's
 own: ``engine.ingest`` ends in counted host reads of the KG's count.
-A configuration holding a mesh raises ``NotImplementedError`` (ROADMAP.md
-Queue 1 item 7, the mesh remainder).
+
+**Over a mesh** (a configuration holding a
+:class:`repro_torch.launch.mesh.Mesh`; the port's mesh is SPMD, one
+process per rank, where the reference's is one process over every
+device): every rank builds a ``FrontDoor`` with the same configuration
+and registers the same tenants in the same order. Rank 0 is the
+*leader*: it alone runs admission, the batcher, the flush timer and the
+worker, and it alone holds tickets. Each flush is a command the leader
+broadcasts on the mesh's group (one ``broadcast_object_list``: the
+sequence number, the tenant and its coalesced records in order); the
+other ranks run :meth:`FrontDoor.follow`, which executes the commands in
+order and returns when the leader broadcasts stop. Every rank encodes the
+same records in the same order, so the tenants' vocabularies stay in
+step; the ranks agree that every rank encoded its records before the
+ingest, and agree on the tenant's vocab size after it (outside the
+audited call). A follower that fails to encode fails the flush's tickets
+on the leader, naming the rank, and the group goes on; a failure inside
+the ingest's collectives breaks the group, and the leader then fails
+every ticket it holds. All group traffic of a rank comes from one thread:
+on the leader, the worker while one runs, else the caller (``register``
+after ``start()`` raises on a mesh door).
 """
 from __future__ import annotations
 
@@ -59,6 +78,15 @@ from .stats import LatencyWindow
 
 Records = Mapping[str, Sequence[Mapping[str, object]]]
 
+#: the ranks' status codes in the flush agreements
+_OK, _FAILED = 0, 1
+
+
+class FlushSkipped(RuntimeError):
+    """A rank of a mesh front door failed before the flush's collectives,
+    so every rank skipped the flush (the leader fails its tickets with
+    this error); the group goes on."""
+
 
 def _device_scope(device: torch.device):
     """The CUDA context of ``device`` for the calling thread (nothing to
@@ -69,7 +97,8 @@ def _device_scope(device: torch.device):
 
 
 class FrontDoor:
-    """Multi-tenant streaming ingest service over one device."""
+    """Multi-tenant streaming ingest service over one device, or over a
+    mesh as leader (rank 0) and followers (see the module docstring)."""
 
     def __init__(self, config: Optional[EngineConfig] = None, *,
                  device: DeviceLike = None,
@@ -102,10 +131,26 @@ class FrontDoor:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._wake = threading.Event()
+        # the mesh: rank 0 leads; the commands a rank has run; the error
+        # that broke the group (no more commands are sent after it)
+        self.mesh = self.registry.mesh
+        self.leader = self.mesh is None or self.mesh.rank == 0
+        self.commands = 0
+        self._broken: Optional[BaseException] = None
+        self._stopped = False
 
     # -- tenant lifecycle ----------------------------------------------------
     def register(self, tenant_id: str, dis: DIS,
                  config: Optional[EngineConfig] = None) -> TenantSession:
+        """Register a tenant's DIS. On a mesh door every rank registers
+        the same tenants in the same order (a session's start is a
+        collective), before ``start()`` and ``follow()``."""
+        if self.mesh is not None and (self._thread is not None
+                                      or self._stopped):
+            raise RuntimeError(
+                "register every tenant of a mesh front door before start() "
+                "or follow(): registration runs collectives, and a rank's "
+                "group traffic comes from one thread")
         return self.registry.register(tenant_id, dis, config=config)
 
     def kg(self, tenant_id: str) -> Optional[Table]:
@@ -117,8 +162,12 @@ class FrontDoor:
     def submit(self, tenant_id: str,
                records: Records) -> Union[Ticket, Overloaded]:
         """Admit-or-shed, then enqueue. Raw records only — encoding into
-        the tenant vocab happens on the worker thread at flush time."""
+        the tenant vocab happens on the worker thread at flush time. On a
+        mesh, only the leader (rank 0) takes requests."""
         session = self.registry.get(tenant_id)   # KeyError if unknown
+        if not self.leader:
+            raise RuntimeError("submit to the leader of a mesh front door "
+                               "(rank 0); the other ranks run follow()")
         depth = self.batcher.depth()
         shed = self.admission.admit(tenant_id, depth)
         if shed is not None:
@@ -144,7 +193,14 @@ class FrontDoor:
             raise RuntimeError("pump() while the worker thread is running "
                                "— engines are single-threaded; use the "
                                "worker or synchronous mode, not both")
+        self._leader_only("pump")
         return self._pump(force=force)
+
+    def _leader_only(self, what: str) -> None:
+        if not self.leader:
+            raise RuntimeError(f"{what}() runs on the leader of a mesh "
+                               "front door (rank 0); the other ranks run "
+                               "follow()")
 
     def _pump(self, force: bool = False) -> int:
         n = 0
@@ -172,33 +228,26 @@ class FrontDoor:
             return 0
         engine = session.engine
         try:
-            with _device_scope(engine.device):
-                deltas = {
-                    name: Table.from_records(recs,
-                                             engine.sources[name].attrs,
-                                             engine.vocab,
-                                             device=engine.device)
-                    for name, recs in merged.items() if recs}
-                recompiles_before = engine.recompiles
-                t0 = self._clock()
-                if deltas:
-                    kg, stats = engine.ingest(deltas)
-                    session.last_kg = kg
-                    session.kg_triples = int(stats["kg_triples"])
-                ingest_s = self._clock() - t0
+            if self._broken is not None:
+                raise RuntimeError("the mesh front door's group broke "
+                                   "earlier") from self._broken
+            if self.mesh is not None:
+                self._broadcast(("flush", self.commands, tenant_id, merged))
+            recompiles_before = engine.recompiles
+            ingest_s = self._apply(session, merged)
             stalls = engine.recompiles - recompiles_before
             if stalls:
                 self.admission.note_recompile(stalls)
         except Exception as err:
+            if self.mesh is not None and not isinstance(err, FlushSkipped):
+                self._broken = self._broken or err
             self._fail(session, taken, err)
             return 1
         now = self._clock()
         with self._lock:
             self._flush_id += 1
             flush_id = self._flush_id
-            self.flushes += 1
             self.completed += len(taken)
-        session.ingests += 1
         session.rows += sum(r.rows for r in taken)
         for req in taken:
             latency = now - req.enqueued_at
@@ -213,6 +262,119 @@ class FrontDoor:
                 recompiles=engine.recompiles,
                 flush_id=flush_id))
         return 1
+
+    def _encode(self, session: TenantSession, merged) -> Dict[str, Table]:
+        """The flush's records as tables in the tenant's vocab, on its
+        session's device."""
+        engine = session.engine
+        return {name: Table.from_records(recs, engine.sources[name].attrs,
+                                         engine.vocab, device=engine.device)
+                for name, recs in merged.items() if recs}
+
+    def _apply(self, session: TenantSession, merged) -> float:
+        """One flush's device work on this rank: encode, ingest, and on a
+        mesh the two agreements around the ingest. Returns the ingest's
+        seconds; counts the flush on the tenant and the door. On a mesh,
+        any failure but a skipped flush (:class:`FlushSkipped`) breaks
+        the group: its peers may sit in a collective this rank left."""
+        engine = session.engine
+        interned = len(engine.vocab)
+        with _device_scope(engine.device):
+            try:
+                deltas = self._encode(session, merged)
+                status = _OK
+            except Exception:
+                if self.mesh is None:
+                    raise
+                deltas, status = {}, _FAILED
+            try:
+                if self.mesh is not None:
+                    try:
+                        self._agree_encoded(status)
+                    except FlushSkipped:
+                        # the values this rank interned for the dropped
+                        # rows go too, so the vocabs stay in step
+                        engine.vocab.truncate(interned)
+                        raise
+                t0 = self._clock()
+                if deltas:
+                    kg, stats = engine.ingest(deltas)
+                    session.last_kg = kg
+                    session.kg_triples = int(stats["kg_triples"])
+                ingest_s = self._clock() - t0
+                if self.mesh is not None:
+                    from repro_torch.launch.mesh import agree
+                    agree(self.mesh, engine.mesh_axis, (len(engine.vocab),),
+                          what=f"tenant {session.tenant_id!r}'s vocab size "
+                          "after a flush")
+            except FlushSkipped:
+                raise
+            except Exception as err:
+                if self.mesh is not None:
+                    self._broken = self._broken or err
+                raise
+        session.ingests += 1
+        with self._lock:
+            self.flushes += 1
+        return ingest_s
+
+    def _agree_encoded(self, status: int) -> None:
+        """Every rank encoded the flush's records (one agreement before
+        the ingest's collectives); raise :class:`FlushSkipped`, naming
+        the ranks, if one did not — every rank then skips the flush
+        together and the group goes on."""
+        from repro_torch.launch.mesh import gather_values
+        rows = gather_values(self.mesh, self.registry.default_config
+                             .mesh_axis, (status,))
+        bad = [r for r, row in enumerate(rows) if int(row[0]) != _OK]
+        if bad:
+            raise FlushSkipped(f"rank(s) {bad} of the mesh front door "
+                               "failed to encode the flush's records; "
+                               "every rank skipped the flush")
+
+    def _broadcast(self, command) -> object:
+        """One command from the leader to every rank (the leader passes
+        it, the others get it back)."""
+        import torch.distributed as dist
+        box = [command]
+        dist.broadcast_object_list(
+            box, src=0, group=self.mesh.group_for(
+                self.registry.default_config.mesh_axis))
+        self.commands += 1
+        return box[0]
+
+    def follow(self) -> int:
+        """A follower's loop (every rank but 0 of a mesh door): run the
+        leader's commands in order until it broadcasts stop. Returns the
+        flushes run. A command that fails on this rank raises out of the
+        loop, unless it failed before the ingest's collectives (then the
+        leader fails the flush's tickets and the loop goes on)."""
+        if self.mesh is None or self.leader:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a mesh front door")
+        self._stopped = True
+        while True:
+            command = self._broadcast(None)
+            kind = command[0]
+            if kind == "stop":
+                return self.flushes
+            _, seq, tenant_id, merged = command
+            if seq != self.commands - 1:
+                raise RuntimeError(f"command {seq} arrived as this rank's "
+                                   f"{self.commands - 1}")
+            session = self.registry.get(tenant_id)
+            try:
+                self._apply(session, merged)
+            except FlushSkipped:
+                session.errors += 1
+
+    def _release_followers(self) -> None:
+        """Broadcast stop (the leader, once), so every follow() returns."""
+        if self.mesh is None or not self.leader or self._stopped:
+            return
+        self._stopped = True
+        if self._broken is None:
+            self._broadcast(("stop",))
 
     def _fail(self, session: TenantSession,
               taken: List[PendingRequest], err: BaseException) -> None:
@@ -231,9 +393,11 @@ class FrontDoor:
                             if deadline is not None else 0.05)
             self._wake.clear()
         self._pump_until_empty()   # drain everything still queued
+        self._release_followers()  # the worker's group traffic ends here
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> "FrontDoor":
+        self._leader_only("start")
         if self._thread is not None and self._thread.is_alive():
             raise RuntimeError("front door already started")
         self._stop.clear()
@@ -245,7 +409,9 @@ class FrontDoor:
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
         """Stop the worker. With ``drain`` the queue is flushed first;
         without it the remaining tickets are *failed* with a
-        ``RuntimeError`` — never left dangling, never dropped silently."""
+        ``RuntimeError`` — never left dangling, never dropped silently. On
+        a mesh door (the leader) the followers are released last."""
+        self._leader_only("stop")
         thread = self._thread
         if thread is not None and thread.is_alive():
             if not drain:
@@ -271,11 +437,13 @@ class FrontDoor:
                 req.ticket.fail(err)
             with self._lock:
                 self.errors += len(pending)
+        self._release_followers()
         self._thread = None
 
     def drain(self, timeout: float = 30.0) -> None:
         """Block until the queue is empty (worker mode) or flush it in
         place (synchronous mode)."""
+        self._leader_only("drain")
         if self._thread is not None and self._thread.is_alive():
             deadline = self._clock() + timeout
             while self.batcher.depth():
@@ -290,7 +458,10 @@ class FrontDoor:
     def serve_stats(self) -> Dict[str, object]:
         """One self-describing snapshot: global counters, compile-dedup
         ratio, admission/backpressure state, latency quantiles, plan
-        cache/store tiers, and a per-tenant breakdown."""
+        cache/store tiers, and a per-tenant breakdown; on a mesh door also
+        ``mesh``: this rank's role, the commands it ran and its sessions'
+        mesh counters (on a follower the counters are the flushes it
+        ran)."""
         sessions = self.registry.sessions()
         dedup = self.registry.compile_dedup()
         store_hits = store_misses = 0
@@ -307,7 +478,7 @@ class FrontDoor:
                         "completed": self.completed,
                         "errors": self.errors,
                         "flushes": self.flushes}
-        return {
+        out = {
             "tenants": dedup["tenants"],
             "shapes": dedup["shapes"],
             "compiles": dedup["compiles"],
@@ -335,3 +506,13 @@ class FrontDoor:
                     "latency": s.latencies.snapshot(),
                 } for s in sessions},
         }
+        if self.mesh is not None:
+            out["mesh"] = {
+                "rank": self.mesh.rank,
+                "role": "leader" if self.leader else "follower",
+                "commands": self.commands,
+                "broken": None if self._broken is None
+                else f"{type(self._broken).__name__}: {self._broken}",
+                "sessions": {s.tenant_id: s.engine.stats()["mesh"]
+                             for s in sessions}}
+        return out

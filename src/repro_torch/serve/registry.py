@@ -15,9 +15,9 @@ compiles".
 
 The shape key is the port's own ``plan_signature``, so ``shape_id``
 digests differ from the reference's; the grouping of tenants into shapes
-is the same. A configuration holding a mesh raises
-``NotImplementedError``: the front door over a mesh needs the ranks to
-agree on every flush (ROADMAP.md Queue 1 item 7, the mesh remainder).
+is the same. A configuration holding a mesh makes every session a mesh
+session on that mesh's device (:class:`repro_torch.serve.FrontDoor` runs
+it as leader and followers); every tenant of a registry shares one mesh.
 """
 from __future__ import annotations
 
@@ -31,15 +31,6 @@ from repro_torch.core.schema import DIS
 from repro_torch.device import DeviceLike, resolve_device
 
 from .stats import LatencyWindow
-
-
-def refuse_mesh(config: Optional[EngineConfig]) -> None:
-    """The single-device front door refuses a mesh configuration."""
-    if config is not None and config.mesh is not None:
-        raise NotImplementedError(
-            "the front door over a mesh is not ported yet: the ranks must "
-            "agree on the composition of every flush (ROADMAP.md Queue 1 "
-            "item 7, the mesh remainder)")
 
 
 @dataclasses.dataclass
@@ -74,14 +65,22 @@ class SessionRegistry:
     explicit :class:`~repro_torch.api.EngineConfig`; per-tenant configs
     may override (tenants under different configs simply land in different
     shape groups — the plan cache keeps them apart anyway). ``device`` is
-    every session's device: the CUDA card unless ``"cpu"`` is passed.
+    every session's device: the CUDA card unless ``"cpu"`` is passed, and
+    the mesh's device when ``default_config`` holds a mesh (``mesh``; a
+    tenant's config may not name another one).
     """
 
     def __init__(self, default_config: Optional[EngineConfig] = None,
                  latency_window: int = 4096, device: DeviceLike = None):
-        refuse_mesh(default_config)
         self.default_config = default_config or EngineConfig()
-        self.device = resolve_device(device)
+        self.mesh = self.default_config.mesh
+        if self.mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = self.mesh.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(f"device {device!r} differs from the "
+                                 f"mesh's device {self.device}")
         self._latency_window = int(latency_window)
         self._sessions: Dict[str, TenantSession] = {}
 
@@ -94,7 +93,10 @@ class SessionRegistry:
         tenant_id = str(tenant_id)
         if tenant_id in self._sessions:
             raise ValueError(f"tenant {tenant_id!r} is already registered")
-        refuse_mesh(config)
+        if config is not None and config.mesh is not self.mesh:
+            raise ValueError(f"tenant {tenant_id!r}'s config names another "
+                             "mesh than the registry's: every tenant of a "
+                             "front door shares one mesh (or none)")
         engine = KGEngine(dis, config=config or self.default_config,
                           device=self.device)
         session = TenantSession(

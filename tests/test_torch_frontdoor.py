@@ -14,8 +14,11 @@ The multi-tenant front door (``repro_torch.serve``: ``percentile``,
   deterministic fields of ``serve_stats()`` and the partition of tenants
   into shapes (the reference compiles XLA here, so it gets one case);
 * the remaining ``tests/test_serve.py`` behaviours on the port alone;
+* a one-rank CPU mesh door beside a one-device door (the multi-rank
+  mesh doors are in ``test_torch_mesh_ranks.py``);
 * ``python -m repro_torch.launch.kg_serve --device cpu`` beside
-  ``python -m repro.launch.kg_serve`` with the same flags.
+  ``python -m repro.launch.kg_serve`` with the same flags, on one device
+  and with ``--mesh-shards 2`` (2 gloo ranks beside 2 host devices).
 
 Every test starts and ends with both packages' plan caches empty
 (``isolated_plan_caches``).
@@ -38,6 +41,7 @@ import repro_torch.api as TA
 import repro_torch.data.synthetic as TS
 import repro_torch.relalg as TR
 import repro_torch.serve as TSV
+from repro_torch.launch.mesh import make_mesh
 from torch_parity import isolated_plan_caches
 
 torch.set_num_threads(1)
@@ -395,10 +399,26 @@ def test_unknown_tenant_duplicates_and_mesh_raise():
     with pytest.raises(ValueError, match="already registered"):
         door.register("a", _tdis())
     assert "a" in door.registry and len(door.registry) == 1
-    mesh_cfg = TA.EngineConfig(mesh=type("M", (), {"shape": {"data": 1}})())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TSV.FrontDoor(mesh_cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    # a one-rank CPU mesh door serves (it leads itself), and its tenant's
+    # KG equals the one-device door's; a tenant may not bring a mesh the
+    # door does not have
+    mesh_cfg = TA.EngineConfig(**CFG, mesh=make_mesh((1,), ("data",),
+                                                     device="cpu"))
+    mdoor = TSV.FrontDoor(mesh_cfg, device="cpu", flush_window=0.0)
+    mdoor.register("m", _tdis())
+    tickets = [d.submit(t, _recs(2, seed=7))
+               for d, t in ((mdoor, "m"), (door, "a"))]
+    assert mdoor.pump(force=True) == door.pump(force=True) == 1
+    assert all(tk.result(timeout=60).kg_triples > 0 for tk in tickets)
+    np.testing.assert_array_equal(mdoor.kg("m").to_codes(),
+                                  door.kg("a").to_codes())
+    st = mdoor.serve_stats()
+    assert st["mesh"]["role"] == "leader" and st["mesh"]["commands"] == 1
+    assert st["mesh"]["sessions"]["m"]["calls"] == 1   # the ingest
+    mdoor.stop(drain=True)
+    with pytest.raises(RuntimeError, match="before start"):
+        mdoor.register("n", _tdis())
+    with pytest.raises(ValueError, match="mesh"):
         door.register("b", _tdis(), config=mesh_cfg)
 
 
@@ -437,23 +457,29 @@ def _summary(stdout):
 
 
 def test_kg_serve_driver_equals_reference():
+    """One device, then over a mesh of 2 (the port's 2 gloo ranks beside
+    the reference's 2 host devices), the same flags; the four drivers
+    run together."""
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
                JAX_PLATFORMS="cpu")
+    mesh_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count"
+                    "=2")
+    runs = [("repro_torch.launch.kg_serve", ["--device", "cpu"], env),
+            ("repro.launch.kg_serve", [], env),
+            ("repro_torch.launch.kg_serve", ["--device", "cpu",
+                                             "--mesh-shards", "2",
+                                             "--timeout", "240"], mesh_env),
+            ("repro.launch.kg_serve", ["--mesh-shards", "2"], mesh_env)]
     procs = [subprocess.Popen([sys.executable, "-m", mod, *KG_SERVE_FLAGS,
-                               *extra], env=env, stdout=subprocess.PIPE,
+                               *extra], env=e, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
-             for mod, extra in (("repro_torch.launch.kg_serve",
-                                 ["--device", "cpu"]),
-                                ("repro.launch.kg_serve", []))]
+             for mod, extra, e in runs]
     outs = [p.communicate(timeout=300) for p in procs]
     for p, (out, err) in zip(procs, outs):
         assert p.returncode == 0, err
-    port, ref = (_summary(out) for out, _ in outs)
+    port, ref, mport, mref = (_summary(out) for out, _ in outs)
     assert port == ref
     # sheds and recompile stalls are exercised, not zero
     assert port[3] == "4" and port[7] == "2"
-    out = subprocess.run([sys.executable, "-m",
-                          "repro_torch.launch.kg_serve", "--mesh-shards",
-                          "2", "--device", "cpu"], env=env,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0 and "Queue 1 item 7" in out.stderr
+    assert mport == mref
+    assert "x2 ranks (gloo)" in outs[2][0]

@@ -16,6 +16,7 @@ reference's, buckets, counts and overflow flag, at 1 to 8 shards, whole
 rows and a key subset, and overflowing. Inputs come from fixed seeds (no
 Hypothesis); the multi-rank runs are in ``test_torch_mesh_ranks.py``.
 """
+import dataclasses
 import importlib
 
 import numpy as np
@@ -295,3 +296,73 @@ def test_shard_table_blocks_match_the_reference_layout(n):
             sizes.append(int(count))
         gathered = TD.unshard_rows(torch.cat(blocks), sizes, cap_locals[name])
         np.testing.assert_array_equal(gathered.numpy(), rows)
+
+
+# ---------------------------------------------------------------------------
+# annotate_query_local
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["join_2hop", "join_filter_project",
+                                  "term_neq", "chain_3", "repeated_var"])
+def test_annotate_query_local_matches(name):
+    """Counts, caps and exchanges of the shard-local query annotation equal
+    the reference's for the same query, KG and calibration, at 1 to 4
+    shards, exact and bound, with and without ``safe_exchange``."""
+    import repro.api as JA
+    import repro.query as JQ
+    import repro_torch.api as TA
+    import repro_torch.query as TQ
+    from test_torch_query import named_queries, session
+    _je, _te, jkg, tkg = session("group_b")
+    codes = np.asarray(jkg.to_codes())
+    jq, tq = named_queries(JA, codes)[name], named_queries(TA, codes)[name]
+    jplan, tplan = JQ.lower_query(jq), TQ.lower_query(tq)
+    jsrc = {JQ.KG_SOURCE: JT.Table.from_codes(codes, jkg.attrs)}
+    tsrc = {TQ.KG_SOURCE: TT.Table.from_codes(codes, tkg.attrs,
+                                              device="cpu")}
+    jcal, tcal = _cals()
+    for n in (1, 2, 3, 4):
+        cap_local = TT.bucket_cap(-(-len(codes) // n))
+        assert cap_local == JT.bucket_cap(-(-len(codes) // n))
+        for strategy in ("gather", "repartition", "auto"):
+            for mode, safe in (("exact", False), ("bound", False),
+                               ("exact", True), ("bound", True)):
+                kw = dict(mode=mode, slack=1.0, join_exchange=strategy,
+                          safe_exchange=safe)
+                jc, jcaps, jx = JQ.annotate_query_local(
+                    jplan, n, {JQ.KG_SOURCE: cap_local},
+                    cap_fn=JT.bucket_cap, sources=jsrc, calibration=jcal,
+                    **kw)
+                tc, tcaps, tx = TQ.annotate_query_local(
+                    tplan, n, {TQ.KG_SOURCE: cap_local},
+                    cap_fn=TT.bucket_cap, sources=tsrc, calibration=tcal,
+                    **kw)
+                assert [type(x).__name__ for x in tc] == \
+                    [type(x).__name__ for x in jc]
+                assert list(tc.values()) == list(jc.values())
+                assert list(tcaps.values()) == list(jcaps.values())
+                assert [dataclasses.astuple(x) for x in tx.values()] == \
+                    [dataclasses.astuple(x) for x in jx.values()]
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4])
+def test_query_mesh_abstract_inputs_match_shard_table(n):
+    """One rank's KG block, as ``KGEngine`` shards it for a mesh query,
+    has the shapes ``query_mesh_abstract_inputs`` gives."""
+    from types import SimpleNamespace
+
+    import repro_torch.query as TQ
+    from repro_torch.core.schema import TRIPLE_ATTRS
+    codes = np.random.default_rng(n).integers(0, 50, (37, 5)).astype(
+        np.int32)
+    kg = TT.Table.from_codes(codes, TRIPLE_ATTRS, device="cpu")
+    cap_local = TT.bucket_cap(-(-kg.capacity // n))
+    shape, count_shape = TQ.query_mesh_abstract_inputs(cap_local, n)
+    for rank in range(n):
+        mesh = SimpleNamespace(shape={"data": n}, rank=rank,
+                               device=torch.device("cpu"))
+        data, count, _ = TD.shard_table(kg, mesh, "data", cap_local)
+        assert tuple(data.shape) == shape
+        assert tuple(count.shape) == count_shape
+    with pytest.raises(ValueError, match="n_shards"):
+        TQ.query_mesh_abstract_inputs(cap_local, 0)

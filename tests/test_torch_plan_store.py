@@ -236,12 +236,14 @@ def test_store_cli_populate_ls_and_analysis_store(tmp_path):
     out = cli("repro_torch.api.store", "populate", "--root", root,
               "--device", "cpu")
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout)["writes"] == 4
+    # every engine × dedup on one device, and the one-rank mesh session
+    assert json.loads(out.stdout)["writes"] == 5
     out = cli("repro_torch.api.store", "ls", "--root", root)
-    assert out.returncode == 0 and out.stdout.count("payloads=") == 4
+    assert out.returncode == 0 and out.stdout.count("payloads=") == 5
     out = cli("repro_torch.analysis", "store", "--root", root)
     assert out.returncode == 0, out.stdout
-    assert "4 entries, 0 invalid" in out.stdout
+    assert "5 entries, 0 invalid" in out.stdout
+    assert out.stdout.count(", mesh)") == 1
     # a fresh session finds the populated entry
     s = _session(TS.make_group_b_dis(48, 0.6, seed=0, device="cpu"), root,
                  engine="rmlmapper", dedup="lex")
@@ -598,10 +600,29 @@ def test_overflow_rebuild_writes_back_bigger_entry(tmp_path):
 
 
 def test_mesh_session_with_store_raises(tmp_path):
-    mesh = type("M", (), {"shape": {"data": 1},
-                          "device": torch.device("cpu")})()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        _session(_tiny_dis(), str(tmp_path), mesh=mesh)
+    """A one-rank mesh session takes a store (the name stays from when it
+    raised): it writes its KG and query entries, and a fresh session
+    rehydrates both, with the writer's KG and answer."""
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((1,), ("data",), device="cpu")
+    q = TA.Query(patterns=[TA.TriplePattern("?s", "?p", "?o"),
+                           TA.TriplePattern("?o", "?p2", "?o2")])
+    runs = []
+    for _ in range(2):
+        TA.clear_plan_cache()
+        session = _session(_tiny_dis(), str(tmp_path), mesh=mesh)
+        kg, st = session.create_kg()
+        ans = session.query(q)
+        runs.append((kg.to_codes(), ans.to_codes(), st, session))
+    (wkg, wans, wst, writer), (rkg, rans, rst, reader) = runs
+    assert wst["store_misses"] == 1 and writer.builds == 2
+    assert rst["store_hits"] == 1 and reader.builds == 0
+    assert reader.stats()["query"]["store_hits"] == 1
+    assert reader._last["entry"].origin == "store"
+    assert reader._last["entry"].cap_locals is not None
+    np.testing.assert_array_equal(rkg, wkg)
+    np.testing.assert_array_equal(rans, wans)
+    assert len(PlanStore(str(tmp_path))) == 2
 
 
 # ---------------------------------------------------------------------------
