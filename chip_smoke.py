@@ -153,48 +153,74 @@ no result):
    back-to-back calls queued behind a sleep kernel, over input copies that
    together exceed the L2 cache), beside the bound the card's memory and
    integer rates set and the share of it reached.
-4. The language models at full width and depth on random weights from a
+4. The language models at full width on random bf16 weights from a
    seeded ``torch.Generator`` on the card, with their own counts:
-   ``make_loss_fn`` of ``rwkv6-7b`` (32 layers) and ``zamba2-2.7b`` (54
-   layers) at B = 2, T = 2048, and ``whisper-large-v3`` (32 + 32 layers)
-   at B = 4, 1500 random frames and 448 decoder tokens, cold and then
-   warm. Each forward must launch exactly: ``rwkv6`` once per layer;
-   ``mamba2_ssd`` once per layer and ``flash_attention`` once per group
-   (9); whisper ``flash_attention`` 64 times (32 encoder + 32 decoder
-   layers); and no other kernel. The loss must be finite and within 1.0
-   of ln(vocab). Prints seconds, tokens/s and peak memory. Then each
-   model serves: ``greedy_generate`` (4 prompts of 4 tokens, 32 new
-   tokens), and the same through ``make_prefill`` and
+   ``make_loss_fn`` of ``rwkv6-7b`` (32 layers), ``zamba2-2.7b`` (54
+   layers), ``qwen3-1.7b`` (28), ``gemma3-4b`` (34), ``olmoe-1b-7b`` (16),
+   ``internlm2-20b`` (48) and ``internvl2-2b`` (24 layers; 256 random
+   patch embeddings + 1792 tokens) at B = 2, T = 2048, full depth;
+   ``mistral-large-123b`` (2 of its 88 layers) and ``kimi-k2-1t-a32b``
+   (1 of its 61) at B = 2, T = 2048, their depth cut to fit the card
+   (``LM_DEPTH``); and ``whisper-large-v3`` (32 + 32 layers) at B = 4,
+   1500 random frames and 448 decoder tokens; cold and then warm. Each
+   forward must launch exactly (``expected_launches``): ``rwkv6`` once
+   per layer; ``mamba2_ssd`` once per layer and ``flash_attention`` once
+   per group (9); whisper ``flash_attention`` 64 times (32 encoder + 32
+   decoder layers); the dense, MoE and VLM families ``flash_attention``
+   once per layer (qwen3 28, internlm2 48, olmoe 16, internvl2 24,
+   mistral 2, kimi 1), except gemma3, whose local layers take the banded
+   plain path at T = 2048: once per global layer (5); and no other
+   kernel. The loss must be finite and within 1.0 of ln(vocab). Prints
+   seconds, tokens/s and peak memory. Then each model at full depth
+   serves: ``greedy_generate`` (4 prompts of 4 tokens, internvl2's after
+   256 patches, 32 new tokens), and the same through ``make_prefill`` and
    ``make_serve_step`` one call at a time, counted per call (rwkv6: 32
    ``rwkv6`` per prefill and per step; zamba2: 54 ``mamba2_ssd``;
-   whisper: 32 ``flash_attention`` per prefill, none per step) and
-   timed; both must give the same tokens.
-5. The same widths at reduced depth (rwkv6 2 layers, zamba2 6 = one
-   group, whisper 2 + 2 on float32 weights: see ``LM_REDUCED_F32``),
-   T = 40 (not a chunk multiple): the card's logits and loss, and its
-   prefill and three teacher-forced decode steps, against the port's CPU
-   plain path on the same weights. For whisper it also checks, on bf16
-   weights, the encoder's output card against CPU at the same fractions,
-   and reports, without checking, the bf16 logits' difference beside the
-   CPU's own sensitivity to noise on the frames.
+   whisper: 32 ``flash_attention`` per prefill, none per step; the
+   dense, MoE and VLM families none: their cached attention takes the
+   plain paths) and timed; both must give the same tokens. Then the
+   batched serving driver, ``python -m repro_torch.launch.serve`` at its
+   defaults (reduced ``qwen3-1.7b``, 16 requests over 4 slots), on the
+   card: its tokens/s and p50/p99 lines, and no kernel launch.
+5. The same widths at reduced depth (``LM_REDUCED_LAYERS``: rwkv6 2
+   layers, zamba2 6 = one group, whisper 2 + 2 on float32 weights: see
+   ``LM_REDUCED_F32``; gemma3 6 = 5 local + 1 global, on float32 weights
+   too; mistral and kimi 1; the others 2), T = 40 (not a chunk multiple;
+   internvl2's after its 256 patches): the card's logits and loss, and
+   its prefill and three teacher-forced decode steps, against the port's
+   CPU plain path on the same weights. For whisper it also checks, on bf16 weights, the
+   encoder's output card against CPU at the same fractions, and reports,
+   without checking, the bf16 logits' difference beside the CPU's own
+   sensitivity to noise on the frames.
 6. The three float kernels against their plain versions on the card at
-   the paths' shapes and at edge cases (``selfcheck.recurrence_cases``
-   and ``selfcheck.attention_cases``, tolerances stated there), then
+   the paths' shapes (``selfcheck.ATTENTION_PATH_SHAPES``: whisper,
+   zamba2 and the dense, MoE and VLM forwards' head counts and sizes) and
+   at edge cases (``selfcheck.recurrence_cases`` and
+   ``selfcheck.attention_cases``, tolerances stated there), then
    their device times beside the bound (``recurrence_work``,
    ``recurrence_bound``, ``attention_work``): for the recurrences the
    bound of the units their bf16 route uses (products on the tensor
    cores, with the split passes the tolerance needs), beside the float32
    bound of earlier runs, each recurrence's time at the decode shape
-   (``RECURRENCE_DECODE``) too; for flash attention, beside
-   ``F.scaled_dot_product_attention`` at the same shape (the library
-   yardstick; the port never calls it).
+   (``RECURRENCE_DECODE``) too; for flash attention, at every path
+   shape, beside ``F.scaled_dot_product_attention`` at the same shape
+   (the library yardstick; the port never calls it).
 7. A ``{"kernels": [...]}`` JSON line for all six kernels (``bound_by``
    says bytes or operations; ``bound_unit`` names the unit that sets the
    bound: bytes, bf16 products, fp32 elementwise or exp), then as the
    last line ``{"ok": true, "device": {...}}``.
+
+``--phase NAME`` (repeatable) runs only the named phase groups, in a
+fresh process: ``main`` (2), ``paper`` (2b), ``query`` (2c), ``verify``
+(2d), ``mesh`` (2e and 2e′; it runs ``main`` and ``query`` first, whose
+results it checks against), ``kg-serve`` (2f), ``store`` (2g),
+``kernels`` (3; it runs ``main`` first, for the δ shapes) and ``lm``
+(4–7). The kernels line then lists the kernels whose phases ran. With no
+arguments every phase runs, in the order above.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -236,16 +262,27 @@ INGEST_IN_BUCKET = 0.02
 INGEST_CROSSING = {"group_b": 0.06, "group_a": 0.35}
 
 #: language models: per arch the loss forward's (batch, sequence) (the
-#: decoder's tokens for whisper, whose encoder takes 1500 frames); the
-#: reduced depth, batch, sequence and decode steps of the card-versus-CPU
-#: comparison; its tolerances (bf16 on both sides, rounded per op;
-#: accumulation order differs between cuBLAS and the CPU's kernels):
-#: logits within 3% of their RMS in RMS and 8% of their largest
-#: magnitude, loss within 2e-3
-LM_ARCHS = ("rwkv6-7b", "zamba2-2.7b", "whisper-large-v3")
+#: decoder's tokens for whisper, whose encoder takes 1500 frames; the
+#: text tokens for internvl2, after its 256 patches); the depth of the
+#: archs too big for the card at full depth (mistral 245 GB and kimi 2 TB
+#: of bf16 weights; full width, the first layers only); the reduced depth,
+#: batch, sequence and decode steps of the card-versus-CPU comparison;
+#: its tolerances (bf16 on both sides, rounded per op; accumulation order
+#: differs between cuBLAS and the CPU's kernels): logits within 3% of
+#: their RMS in RMS and 8% of their largest magnitude, loss within 2e-3
+LM_ARCHS = ("rwkv6-7b", "zamba2-2.7b", "whisper-large-v3", "qwen3-1.7b",
+            "gemma3-4b", "olmoe-1b-7b", "internvl2-2b", "internlm2-20b",
+            "mistral-large-123b", "kimi-k2-1t-a32b")
 LM_SHAPE = {"rwkv6-7b": (2, 2048), "zamba2-2.7b": (2, 2048),
-            "whisper-large-v3": (4, 448)}
-LM_REDUCED_LAYERS = {"rwkv6-7b": 2, "zamba2-2.7b": 6, "whisper-large-v3": 2}
+            "whisper-large-v3": (4, 448), "qwen3-1.7b": (2, 2048),
+            "gemma3-4b": (2, 2048), "olmoe-1b-7b": (2, 2048),
+            "internvl2-2b": (2, 1792), "internlm2-20b": (2, 2048),
+            "mistral-large-123b": (2, 2048), "kimi-k2-1t-a32b": (2, 2048)}
+LM_DEPTH = {"mistral-large-123b": 2, "kimi-k2-1t-a32b": 1}
+LM_REDUCED_LAYERS = {"rwkv6-7b": 2, "zamba2-2.7b": 6, "whisper-large-v3": 2,
+                     "qwen3-1.7b": 2, "gemma3-4b": 6, "olmoe-1b-7b": 2,
+                     "internvl2-2b": 2, "internlm2-20b": 2,
+                     "mistral-large-123b": 1, "kimi-k2-1t-a32b": 1}
 LM_REDUCED_BATCH, LM_REDUCED_SEQ, LM_REDUCED_STEPS = 2, 40, 3
 #: whisper's logits are compared on float32 weights: its random init (q
 #: and k scaled by 1/sqrt(d_head) on the d_model-wide input: scores of
@@ -253,9 +290,17 @@ LM_REDUCED_BATCH, LM_REDUCED_SEQ, LM_REDUCED_STEPS = 2, 40, 3
 #: noise of half a bf16 step on the frames alone moves the CPU's own
 #: logits by tens of percent (``whisper_bf16`` reports it, and checks the
 #: bf16 encoder's output, card against CPU, at the same fractions)
-LM_REDUCED_F32 = ("whisper-large-v3",)
+#: gemma3's likewise: at full width its random bf16 init is chaotic (on
+#: the CPU, 6 layers, T = 40: its bf16 logits lie 20% (RMS) and 37%
+#: (largest magnitude) from its float32 ones, and two bf16 evaluations of
+#: the same attention, the flash route's plain version and the blockwise
+#: path, lie 2.3% / 4.9% apart; qwen3's: 0.6% and 0.3%), so its bf16
+#: logits are reported beside the float32 check, not checked
+LM_REDUCED_F32 = ("whisper-large-v3", "gemma3-4b")
 LM_RMS_FRAC, LM_MAX_FRAC, LM_LOSS_ATOL = 0.03, 0.08, 2e-3
 LM_LOSS_BAND = 1.0
+#: the stub ViT's patch width (``models/vlm.py::VIT_DIM``)
+VIT_DIM = 1024
 #: serving: prompts per batch, prompt length, new tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4, 32
 #: the path whose cold forward gives each float kernel's launches in the
@@ -284,6 +329,15 @@ KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:96"),
 }
 INT_KERNELS = ("rowhash", "hash_neighbor_flags", "radix_partition")
+
+#: the phase groups ``--phase`` selects, in the order they run, and the
+#: groups each needs run first
+PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve", "store",
+          "kernels", "lm")
+PHASE_NEEDS = {"mesh": ("main", "query"), "kernels": ("main",)}
+#: the groups that need the KG workloads
+KG_PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve",
+             "store")
 
 
 class SmokeFailure(RuntimeError):
@@ -328,31 +382,78 @@ def group_a_records(n_rows: int, n_distinct: int, seed: int, attr: str,
             for i, v in enumerate(vals)]
 
 
-def build_workloads():
-    from repro_torch.data.synthetic import (make_group_a_dis,
-                                            make_group_b_dis,
-                                            make_group_b_extension_records)
-    out = []
+#: the workloads the KG phases build on the host, made in worker
+#: processes (all started together, before the first phase) so that the
+#: card's phases run meanwhile: name -> (builder, keyword arguments, the
+#: phases that need it; every KG phase needs phase 2's two DISes)
+PREBUILDS = {
+    "group_b": ("group_b", {"seed": 0}, KG_PHASES),
+    "group_a": ("group_a", {}, KG_PHASES),
+    "group_b (b)": ("group_b", {"seed": 0, "dedup_left": True}, ("paper",)),
+    "group_b (c)": ("group_b", {"seed": 0, "dedup_left": True,
+                                "dedup_right": True}, ("paper",)),
+    "serve shape 1": ("group_b", {"seed": 1}, ("kg-serve",)),
+    "serve streams": ("streams", {}, ("kg-serve",)),
+}
+
+
+def prebuild(kind: str, kw):
+    """One workload, in a worker process: (the object, build seconds)."""
+    from repro_torch.data.synthetic import make_group_a_dis, make_group_b_dis
     t0 = time.perf_counter()
+    if kind == "group_b":
+        out = make_group_b_dis(GROUP_B_ROWS, 0.75, device="cpu", **kw)
+    elif kind == "group_a":
+        out = make_group_a_dis(GROUP_A_ROWS, 0.75, seed=0, device="cpu")
+    else:
+        out = kg_serve_streams()
+    return out, time.perf_counter() - t0
+
+
+class Prebuilt:
+    """The PREBUILDS the selected phases need, building in a pool of
+    spawned processes (which never touch the card); ``get`` waits for one
+    and logs how long it took to build."""
+
+    def __init__(self, phases):
+        import multiprocessing as mp
+        from concurrent.futures import ProcessPoolExecutor
+        jobs = {name: (kind, kw) for name, (kind, kw, needed_by)
+                in PREBUILDS.items() if phases & set(needed_by)}
+        self.pool = ProcessPoolExecutor(max_workers=max(1, len(jobs)),
+                                        mp_context=mp.get_context("spawn"))
+        self.futures = {name: self.pool.submit(prebuild, *job)
+                        for name, job in jobs.items()}
+
+    def get(self, name: str):
+        t0 = time.perf_counter()
+        out, secs = self.futures.pop(name).result()
+        log(f"workload {name} built in {secs:.1f} s in a worker process "
+            f"(waited {time.perf_counter() - t0:.1f} s for it)")
+        return out
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def build_workloads(prebuilt):
+    from repro_torch.data.synthetic import make_group_b_extension_records
+    out = []
     n = GROUP_B_ROWS
-    dis = make_group_b_dis(n, 0.75, seed=0, device="cpu")
     small = make_group_b_extension_records(int(n * INGEST_IN_BUCKET), seed=1)
     big = make_group_b_extension_records(
         int(n * INGEST_CROSSING["group_b"]), seed=2, sources=("gene",))
-    out.append((f"group_b_{n}", dis, small, big))
-    log(f"workload group_b {n} rows/source built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    out.append((f"group_b_{n}", prebuilt.get("group_b"), small, big))
     t0 = time.perf_counter()
     n = GROUP_A_ROWS
-    dis = make_group_a_dis(n, 0.75, seed=0, device="cpu")
+    dis = prebuilt.get("group_a")
     n_distinct = int(round(n * 0.25))
     small = {"src0": group_a_records(int(n * INGEST_IN_BUCKET * 5),
                                      n_distinct, 3, "enst")}
     big = {"src1": group_a_records(int(n * INGEST_CROSSING["group_a"]),
                                    n_distinct, 4, "downstream_gene")}
     out.append((f"group_a_{n}", dis, small, big))
-    log(f"workload group_a {n} rows/source built in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"workload extensions built in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -544,25 +645,22 @@ def paper_runs(torch, dis, dev, eager: bool, warm: bool):
     return out
 
 
-def paper_phase(torch, dev, card, workloads):
+def paper_phase(torch, dev, card, workloads, prebuilt):
     """Group B's three scenarios at GROUP_B_ROWS and group A at
     GROUP_A_ROWS on the card, each against the same calls on the CPU."""
     import numpy as np
     from repro_torch.configs.mapsdi_paper import CONFIG
-    from repro_torch.data.synthetic import make_group_b_dis
     from repro_torch.kernels import launch_counts, reset_launch_counts
     base = {name: dis for name, dis, _small, _big in workloads}
     cases = []
     for tag, (left, right) in zip("abc", CONFIG.group_b_scenarios):
         if not (left or right):
             dis = base[f"group_b_{GROUP_B_ROWS}"]
-        else:
-            t0 = time.perf_counter()
-            dis = make_group_b_dis(GROUP_B_ROWS, 0.75, seed=0,
-                                   dedup_left=left, dedup_right=right,
-                                   device="cpu")
-            log(f"workload group_b ({tag}) {GROUP_B_ROWS} rows/source "
-                f"built in {time.perf_counter() - t0:.1f} s")
+        else:           # PREBUILDS: make_group_b_dis with the dedup flags
+            check((left, right) == {"b": (True, False),
+                                    "c": (True, True)}[tag],
+                  f"scenario {tag}: {(left, right)}")
+            dis = prebuilt.get(f"group_b ({tag})")
         cases.append((f"group_b ({tag})", dis, tag == "a"))
     cases.append(("group_a", base[f"group_a_{GROUP_A_ROWS}"], True))
 
@@ -1783,7 +1881,7 @@ def kg_serve_line(torch, door, tickets, secs, card, leg):
     return st
 
 
-def kg_serve_phase(torch, dev, card, pristine):
+def kg_serve_phase(torch, dev, card, pristine, prebuilt):
     """KG serving on the card: KG_SERVE_TENANTS tenants over KG_SERVE_SHAPES
     group-B shapes at GROUP_B_ROWS rows per source, each fed KG_SERVE_ROUNDS
     requests. Three legs (synchronous, worker thread, overload); the
@@ -1793,19 +1891,17 @@ def kg_serve_phase(torch, dev, card, pristine):
 
     import numpy as np
     from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
-    from repro_torch.data.synthetic import make_group_b_dis
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.relalg import Table
     from repro_torch.serve import Overloaded, Ticket
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
     # shape 0 is phase 2's group-B DIS (make_group_b_dis(GROUP_B_ROWS,
-    # 0.75, seed=0)) as built, before any session grew its vocab
+    # 0.75, seed=0)) as built, before any session grew its vocab; shape 1
+    # is make_group_b_dis(GROUP_B_ROWS, 0.75, seed=1), and the requests
+    # kg_serve_streams()'s (PREBUILDS)
     bases = [pristine[f"group_b_{GROUP_B_ROWS}"],
-             make_group_b_dis(GROUP_B_ROWS, 0.75, seed=1, device="cpu")]
-    streams = kg_serve_streams()
-    log(f"serve: shape 1's DIS and {KG_SERVE_TENANTS} x {KG_SERVE_ROUNDS} requests "
-        f"built in {time.perf_counter() - t0:.1f} s")
+             prebuilt.get("serve shape 1")]
+    streams = prebuilt.get("serve streams")
     cfg = EngineConfig(engine="sdm", dedup="hash")
     totals = dict.fromkeys(INT_KERNELS, 0)
 
@@ -2353,12 +2449,18 @@ def exchange_work(torch, dev, n: int, k: int, nb: int, cb: int, cols):
 # phases 4-7: the language models
 # ---------------------------------------------------------------------------
 
-def expected_launches(cfg, what: str):
-    """Kernel launches of one loss ``forward``, one ``prefill`` or one
-    decode ``step``: the recurrence once per layer; the flash kernel once
-    per full-sequence self-attention (zamba2's shared block in the
-    forward, once per group; whisper's encoder layers, and its decoder
-    layers in the forward); cached attention takes the plain paths."""
+def expected_launches(cfg, what: str, seq: int = 0):
+    """Kernel launches of one loss ``forward`` over ``seq`` positions, one
+    ``prefill`` or one decode ``step``: the recurrence once per layer; the
+    flash kernel once per full-sequence self-attention of a forward
+    (zamba2's shared block, once per group; whisper's encoder layers, and
+    its decoder layers in the forward; every layer of the dense, MoE and
+    VLM families: qwen3 28, internlm2 48, olmoe 16, internvl2 24 at full
+    depth, except gemma3's local layers, which take the banded plain
+    path where the reference's ``_banded_ok`` holds (at T = 2048: 5, its
+    global layers); whisper's prefill runs its encoder; cached attention
+    takes the plain paths (the dense, MoE and VLM families' prefill and
+    steps launch nothing)."""
     if cfg.family == "rwkv":
         return {"rwkv6": cfg.n_layers}
     if cfg.family == "hybrid":
@@ -2366,9 +2468,34 @@ def expected_launches(cfg, what: str):
         if what == "forward":
             out["flash_attention"] = cfg.n_layers // cfg.shared_attn_every
         return out
-    return {"forward": {"flash_attention": 2 * cfg.n_layers},
-            "prefill": {"flash_attention": cfg.n_layers},
-            "step": {}}[what]
+    if cfg.family == "encdec":
+        return {"forward": {"flash_attention": 2 * cfg.n_layers},
+                "prefill": {"flash_attention": cfg.n_layers},
+                "step": {}}[what]
+    if what != "forward":
+        return {}
+    block = max(cfg.window_size, min(1024, seq))
+    banded = (cfg.family != "moe" and cfg.local_global and cfg.banded_local
+              and cfg.window_size and not cfg.seq_shard_activations
+              and seq % block == 0 and seq > cfg.window_size)
+    return {"flash_attention": (cfg.n_layers // (cfg.local_global + 1)
+                                if banded else cfg.n_layers)}
+
+
+def forward_positions(cfg, seq: int) -> int:
+    """Positions a forward over ``seq`` tokens runs (internvl2's patches
+    come first)."""
+    return seq + (cfg.n_prepend if cfg.family == "vlm" else 0)
+
+
+def lm_config(arch: str):
+    """The arch's config at the depth the forward phase runs."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch in LM_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=LM_DEPTH[arch])
+    return cfg
 
 
 def check_counts(counts, want, what: str) -> None:
@@ -2384,7 +2511,16 @@ def lm_batch(torch, cfg, batch: int, seq: int, gen, dev):
         out["frames"] = torch.randn(
             (batch, cfg.n_enc_frames, cfg.d_model), generator=gen,
             device=dev).to(torch.bfloat16)
+    if cfg.family == "vlm":         # the stub ViT's patch embeddings
+        out["patches"] = torch.randn(
+            (batch, cfg.n_prepend, VIT_DIM), generator=gen,
+            device=dev).to(torch.bfloat16)
     return out
+
+
+def model_inputs(batch):
+    """The modality inputs of a batch, as keyword arguments of ``apply``."""
+    return {k: batch[k] for k in ("frames", "patches") if k in batch}
 
 
 def lm_forward_phase(torch, dev):
@@ -2399,18 +2535,23 @@ def lm_forward_phase(torch, dev):
     from repro_torch.train.train_step import make_loss_fn
     launches = {}
     for arch in LM_ARCHS:
-        cfg = get_config(arch)
+        cfg = lm_config(arch)
         model = get_model(cfg.family)
         b, seq = LM_SHAPE[arch]
-        want = expected_launches(cfg, "forward")
+        want = expected_launches(cfg, "forward", forward_positions(cfg, seq))
         gen = torch.Generator(device=dev).manual_seed(0)
         t0 = time.perf_counter()
         params = init_params(model.param_specs(cfg), gen, dev)
         batch = lm_batch(torch, cfg, b, seq, gen, dev)
         torch.cuda.synchronize()
         n_params = sum(x.numel() for x in _tensors(params))
-        log(f"lm {arch}: {n_params / 1e9:.3f} B parameters initialised on "
-            f"the card in {time.perf_counter() - t0:.1f} s")
+        depth = (f" ({cfg.n_layers} of its {get_config(arch).n_layers} "
+                 "layers: full width, depth cut to fit the card)"
+                 if arch in LM_DEPTH else "")
+        log(f"lm {arch}: {n_params / 1e9:.3f} B parameters{depth} "
+            f"initialised on the card in {time.perf_counter() - t0:.1f} s")
+        patches = (f" + {cfg.n_prepend} patches" if cfg.family == "vlm"
+                   else "")
         loss_fn = make_loss_fn(cfg)
         torch.cuda.reset_peak_memory_stats(dev)
         for run in ("cold", "warm"):
@@ -2424,7 +2565,8 @@ def lm_forward_phase(torch, dev):
                 for k, v in counts.items():
                     if LAUNCH_REPORT.get(k) == arch:
                         launches[k] = v
-            log(f"lm {arch} forward {run}: B={b} T={seq} {secs:.3f} s, "
+            log(f"lm {arch} forward {run}: B={b} T={seq}{patches} "
+                f"{secs:.3f} s, "
                 f"{b * seq / secs:.0f} tokens/s, loss {loss:.4f} "
                 f"(ln vocab {math.log(cfg.vocab_size):.4f}), launches "
                 f"{json.dumps(counts)}")
@@ -2438,10 +2580,38 @@ def lm_forward_phase(torch, dev):
         log(f"lm {arch}: forward peak device memory {peak / 2**30:.2f} GiB "
             f"(parameters {weights / 2**30:.2f} GiB)")
         del batch
-        serve_phase(torch, dev, arch, cfg, params, gen)
+        if arch not in LM_DEPTH:
+            serve_phase(torch, dev, arch, cfg, params, gen)
         del params
         torch.cuda.empty_cache()
     return launches
+
+
+def serve_driver_phase(torch, dev, card):
+    """``python -m repro_torch.launch.serve`` at its defaults (reduced
+    qwen3-1.7b, 16 requests, 4 slots, prompt 32, 16 new tokens) on the
+    card, in this process: its two result lines, and no kernel launch (a
+    reduced prefill and the decode steps take the plain cached paths)."""
+    import contextlib
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve as serve_driver
+    out = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_driver.main(["--device", str(dev)])
+    secs = time.perf_counter() - t0
+    lines = out.getvalue().splitlines()
+    check(rc == 0 and len(lines) == 2 and lines[0].startswith("served 16 ")
+          and lines[1].startswith("latency p50="),
+          f"launch/serve.py on the card: rc {rc}, output {lines}")
+    check_counts(launch_counts(), {}, "launch/serve.py")
+    for line in lines:
+        log(f"serve driver (launch/serve.py defaults, reduced qwen3-1.7b): "
+            f"{line}  ({card})")
+    log(f"serve driver: {secs:.2f} s in all, parameters and prompts "
+        "included")
 
 
 def serve_phase(torch, dev, arch, cfg, params, gen):
@@ -2550,17 +2720,18 @@ def lm_cpu_phase(torch, dev):
         params = to(raw, dev, f32)
         batch = lm_batch(torch, cfg, LM_REDUCED_BATCH, LM_REDUCED_SEQ, gen,
                          dev)
-        kw = ({"frames": batch["frames"]} if "frames" in batch else {})
         prefill, step = make_prefill(cfg), make_serve_step(cfg)
         out = {}
         for where, p, bt in (("card", params, batch),
                              ("cpu", to(params, "cpu", f32),
                               {k: v.cpu() for k, v in batch.items()})):
             t0 = time.perf_counter()
-            fkw = {"frames": bt["frames"]} if kw else {}
+            fkw = model_inputs(bt)
             with torch.inference_mode():
                 logits = model.apply(cfg, p, bt["tokens"], **fkw)
-                loss = softmax_xent(logits, bt["labels"], None,
+                text = (logits[:, cfg.n_prepend:] if cfg.family == "vlm"
+                        else logits)
+                loss = softmax_xent(text, bt["labels"], None,
                                     cfg.vocab_size)
             toks = bt["tokens"]
             sl, cache = prefill(p, dict(fkw, tokens=toks[:, :SERVE_PROMPT]))
@@ -2592,9 +2763,12 @@ def lm_cpu_phase(torch, dev):
         log(f"lm {arch} loss card {gloss:.6f} vs cpu {closs:.6f}")
         check(ok and abs(gloss - closs) <= LM_LOSS_ATOL,
               f"{arch}: the card differs from the CPU plain path")
-        if f32:
+        if f32 and cfg.family == "encdec":
             whisper_bf16(torch, arch, cfg, model, raw, batch,
                          to(raw, "cpu", False))
+        elif f32:
+            bf16_report(torch, arch, cfg, model, raw, batch,
+                        to(raw, "cpu", False))
         del params, raw
         torch.cuda.empty_cache()
 
@@ -2635,6 +2809,29 @@ def whisper_bf16(torch, arch, cfg, model, params, batch, cpu_params):
     log(f"lm {arch} bf16 weights (not checked): card vs cpu logits rms "
         f"diff {rel(card, cpu):.4f} of their rms; cpu vs cpu with noise of "
         f"half a bf16 step on the frames {rel(noisy, cpu):.4f}")
+
+
+def bf16_report(torch, arch, cfg, model, params, batch, cpu_params):
+    """Reported, not checked: the bf16 forward's logits card against CPU,
+    beside the CPU's own bf16 logits against its float32 ones."""
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.float())
+
+    def rel(a, b):
+        return float((a - b).square().mean().sqrt()
+                     / b.square().mean().sqrt())
+
+    kw = model_inputs(batch)
+    ckw = {k: v.cpu() for k, v in kw.items()}
+    tokens = batch["tokens"].cpu()
+    with torch.inference_mode():
+        card = model.apply(cfg, params, batch["tokens"], **kw).float().cpu()
+        cpu = model.apply(cfg, cpu_params, tokens, **ckw).float()
+        cpu32 = model.apply(cfg, f32(cpu_params), tokens, **ckw).float()
+    log(f"lm {arch} bf16 weights (not checked): card vs cpu logits rms "
+        f"diff {rel(card, cpu):.4f} of their rms; cpu bf16 vs cpu float32 "
+        f"{rel(cpu, cpu32):.4f}")
 
 
 #: the decode shape the recurrences are timed at beside the path's: one
@@ -2749,6 +2946,7 @@ def attention_work(torch, dev, shape):
                                                      flash_attention_kernel)
     from repro_torch.kernels.flash_attention.kernel import tiles
     label, b, h, kh, s_q, s_k, d, causal = shape
+    gqa = {"enable_gqa": True} if h != kh else {}   # SDPA's grouped heads
     nbytes = 2 * (2 * b * h * s_q * d + 2 * b * kh * s_k * d)
     pairs = b * h * attention_pairs(s_q, s_k, causal)
     copies = max(2, -(-2 * L2_BYTES // nbytes))
@@ -2757,7 +2955,8 @@ def attention_work(torch, dev, shape):
     return ([lambda x=x: flash_attention_kernel(*x, causal=causal)
              for x in ins],
             [lambda x=x: attention_ref(*x, causal=causal) for x in ins],
-            [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=causal)
+            [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=causal,
+                                                        **gqa)
              for x in ins],
             nbytes, 4 * pairs * d, pairs,
             f"{label} B={b} H={h} S={s_q} D={d} tiles {tiles(d)}")
@@ -2839,9 +3038,33 @@ def lm_kernel_phase(torch, dev):
 
 # ---------------------------------------------------------------------------
 
+def selected_phases(argv):
+    """The phase groups ``--phase NAME ...`` selects with the groups they
+    need (every group without arguments), or None after a usage error."""
+    if not argv:
+        return set(PHASES)
+    names = []
+    for i, a in enumerate(argv):
+        if a == "--phase" and i + 1 < len(argv):
+            names.append(argv[i + 1])
+        elif i == 0 or argv[i - 1] != "--phase":
+            return None
+    if not names or any(n not in PHASES for n in names):
+        return None
+    out = set(names)
+    for n in names:
+        out.update(PHASE_NEEDS.get(n, ()))
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--store-leg"]:    # one of phase 2g's processes
         return store_leg(*sys.argv[2:6])
+    phases = selected_phases(sys.argv[1:])
+    if phases is None:
+        print(f"usage: chip_smoke.py [--phase NAME ...], NAME one of "
+              f"{', '.join(PHASES)}", file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     try:
         import torch
@@ -2857,55 +3080,103 @@ def main() -> int:
         print(f"chip_smoke: the port is not importable ({e}); run from "
               "the root of a checkout", file=sys.stderr)
         return 2
+    launches, errs, bad, times = {}, {}, {}, {}
+    mesh_launches = serve_launches = None
+    t_phase = [time.perf_counter()]
+
+    def done(name: str) -> None:
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_phase[0]:.1f} s (at "
+            f"{now - t_start:.1f} s)")
+        t_phase[0] = now
+
     try:
-        card = card_line()
-        log(card)
-        dev = torch.device("cuda", 0)
-        t0 = time.perf_counter()
-        _lib.lib()
-        log(f"kernels built and loaded in {time.perf_counter() - t0:.2f} s "
-            f"(nvcc {_lib.last_build_seconds:.2f} s)")
-        workloads = build_workloads()
-        # the DISes as built, before any session grows their vocabs
-        pristine = {name: private_copy(dis)
-                    for name, dis, _small, _big in workloads}
-        launches, path_shapes, main_gpu = main_path_phase(torch, dev,
-                                                          workloads)
-        paper_phase(torch, dev, card, workloads)
-        query_gpu = query_phase(torch, dev, card, workloads)
-        verify_phase(torch, dev, card, workloads)
-        mesh_launches, mesh_shapes = mesh_phase(torch, dev, card, workloads,
-                                                main_gpu, query_gpu)
-        serve_launches = kg_serve_phase(torch, dev, card, pristine)
-        store_phase(torch, dev, card, pristine)
-        del workloads, main_gpu, pristine
-        errs, bad, times, (n_rep, k_rep) = kernel_phase(
-            torch, dev, path_shapes, [(n, k, nb, cb, cols) for
-                                      n, k, nb, cb, cols in mesh_shapes])
-        # float32 products in full float32 (the plain versions' matmuls)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        launches.update(lm_forward_phase(torch, dev))
-        lm_cpu_phase(torch, dev)
-        lm_errs, lm_bad, lm_times = lm_kernel_phase(torch, dev)
+        with contextlib.ExitStack() as stack:
+            card = card_line()
+            log(card)
+            log(f"phases: {', '.join(p for p in PHASES if p in phases)}")
+            dev = torch.device("cuda", 0)
+            if phases & set(KG_PHASES):
+                # the host builds start first, beside everything after
+                prebuilt = Prebuilt(phases)
+                stack.callback(prebuilt.close)
+            t0 = time.perf_counter()
+            _lib.lib()
+            log(f"kernels built and loaded in {time.perf_counter() - t0:.2f}"
+                f" s (nvcc {_lib.last_build_seconds:.2f} s)")
+            done("build")
+            if phases & set(KG_PHASES):
+                workloads = build_workloads(prebuilt)
+                # the DISes as built, before any session grows their vocabs
+                pristine = {name: private_copy(dis)
+                            for name, dis, _small, _big in workloads}
+                main_gpu = query_gpu = None
+                mesh_shapes = []
+                done("workloads")
+                if "main" in phases:
+                    launches, path_shapes, main_gpu = main_path_phase(
+                        torch, dev, workloads)
+                    done("main")
+                if "paper" in phases:
+                    paper_phase(torch, dev, card, workloads, prebuilt)
+                    done("paper")
+                if "query" in phases:
+                    query_gpu = query_phase(torch, dev, card, workloads)
+                    done("query")
+                if "verify" in phases:
+                    verify_phase(torch, dev, card, workloads)
+                    done("verify")
+                if "mesh" in phases:
+                    mesh_launches, mesh_shapes = mesh_phase(
+                        torch, dev, card, workloads, main_gpu, query_gpu)
+                    done("mesh")
+                if "kg-serve" in phases:
+                    serve_launches = kg_serve_phase(torch, dev, card,
+                                                    pristine, prebuilt)
+                    done("kg-serve")
+                if "store" in phases:
+                    store_phase(torch, dev, card, pristine)
+                    done("store")
+                del workloads, main_gpu, pristine
+            if "kernels" in phases:
+                errs, bad, times, (n_rep, k_rep) = kernel_phase(
+                    torch, dev, path_shapes, [(n, k, nb, cb, cols) for
+                                              n, k, nb, cb, cols in
+                                              mesh_shapes])
+                for name in INT_KERNELS:
+                    times[name] = dict(times[(name, n_rep, k_rep)],
+                                       shape=f"N={n_rep} K={k_rep}")
+                done("kernels")
+            if "lm" in phases:
+                # float32 products in full float32 (the plain versions'
+                # matmuls)
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+                launches.update(lm_forward_phase(torch, dev))
+                serve_driver_phase(torch, dev, card)
+                done("lm forward and serving")
+                lm_cpu_phase(torch, dev)
+                done("lm card against cpu")
+                lm_errs, lm_bad, lm_times = lm_kernel_phase(torch, dev)
+                errs.update(lm_errs)
+                bad.update(lm_bad)
+                times.update(lm_times)
+                done("lm kernels")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    errs.update(lm_errs)
-    bad.update(lm_bad)
-    for name in INT_KERNELS:
-        times[name] = dict(times[(name, n_rep, k_rep)],
-                           shape=f"N={n_rep} K={k_rep}")
-    times.update(lm_times)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if name not in times:               # its phases did not run
+            continue
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            **({"mesh_launches": mesh_launches[name],
-                "serve_launches": serve_launches[name]}
-               if name in INT_KERNELS else {}),
+            **({"mesh_launches": mesh_launches[name]}
+               if name in INT_KERNELS and mesh_launches else {}),
+            **({"serve_launches": serve_launches[name]}
+               if name in INT_KERNELS and serve_launches else {}),
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

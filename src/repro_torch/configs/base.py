@@ -1,11 +1,9 @@
 """Architecture configuration of the language models the port runs.
 
 One :class:`ArchConfig` per architecture lives in ``configs/<id>.py``
-(same fields and values as the JAX package's). The port runs the
-``rwkv``, ``hybrid`` and ``encdec`` families; ``get_config`` raises
-``NotImplementedError`` for the other architectures, which ROADMAP.md
-queues. ``reduced_config`` shrinks a config to a CPU-test size of the
-same family (same block structure, tiny dims).
+(same fields and values as the JAX package's), for all ten of its
+architectures. ``reduced_config`` shrinks a config to a CPU-test size of
+the same family (same block structure, tiny dims).
 """
 from __future__ import annotations
 
@@ -90,15 +88,15 @@ class ArchConfig:
 # registry
 # ---------------------------------------------------------------------------
 
-#: architectures the port runs (``configs/<id>.py``)
-ARCH_IDS = ("rwkv6_7b", "zamba2_2p7b", "whisper_large_v3")
-#: the JAX package's other architectures, queued in ROADMAP.md
-QUEUED_ARCH_IDS = (
-    "internlm2_20b", "qwen3_1p7b", "gemma3_4b", "mistral_large_123b",
-    "olmoe_1b_7b", "kimi_k2_1t_a32b", "internvl2_2b",
+#: architectures the port runs (``configs/<id>.py``), in the JAX
+#: package's order
+ARCH_IDS = (
+    "rwkv6_7b", "internlm2_20b", "qwen3_1p7b", "gemma3_4b",
+    "mistral_large_123b", "olmoe_1b_7b", "kimi_k2_1t_a32b",
+    "internvl2_2b", "zamba2_2p7b", "whisper_large_v3",
 )
 
-_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS + QUEUED_ARCH_IDS}
+_ALIASES = {i.replace("_", "-"): i for i in ARCH_IDS}
 _ALIASES.update({
     "rwkv6-7b": "rwkv6_7b", "internlm2-20b": "internlm2_20b",
     "qwen3-1.7b": "qwen3_1p7b", "gemma3-4b": "gemma3_4b",
@@ -110,10 +108,6 @@ _ALIASES.update({
 
 def get_config(arch: str) -> ArchConfig:
     mod_name = _ALIASES.get(arch, arch)
-    if mod_name in QUEUED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet: the port runs {list(ARCH_IDS)}; "
-            "ROADMAP.md (Queue 1, item 8) queues the other families")
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_ALIASES)}")
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")

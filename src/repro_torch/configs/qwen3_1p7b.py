@@ -1,0 +1,11 @@
+"""Qwen3 1.7B — dense GQA + qk_norm. [hf:Qwen/Qwen3-8B family; hf]
+28L d_model=2048 16H (GQA kv=8) d_ff=6144 vocab=151936."""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen3-1.7b", family="dense",
+    n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8,
+    d_ff=6144, vocab_size=151936, d_head=128,
+    qk_norm=True, rope_theta=1e6, tied_embeddings=True,
+    optimizer="adamw", fsdp=False, remat="full",
+)

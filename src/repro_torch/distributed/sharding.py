@@ -15,6 +15,10 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 
+#: the largest float32 draw ``ParamSpec.materialize`` makes at once
+DRAW_LIMIT = 1 << 30
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     """Declaration of one parameter: shape + dtype + init."""
@@ -40,12 +44,15 @@ class ParamSpec:
             scale = float(fan_in) ** -0.5
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
         # stacked layer parameters are drawn one layer at a time, so the
-        # float32 draw never holds a whole stack
+        # float32 draw never holds a whole stack; a layer's part of more
+        # than DRAW_LIMIT elements (kimi's 384 stacked experts, its
+        # embedding) is drawn in chunks of its leading axis
         parts = out if len(self.shape) >= 3 else out[None]
         for part in parts:
-            part.copy_(torch.randn(part.shape, generator=generator,
-                                   dtype=torch.float32, device=device)
-                       * scale)
+            for piece in part.chunk(-(-part.numel() // DRAW_LIMIT)):
+                piece.copy_(torch.randn(piece.shape, generator=generator,
+                                        dtype=torch.float32, device=device)
+                            .mul_(scale))
         return out
 
 

@@ -438,11 +438,20 @@ def attention_inputs(device, b: int, h: int, kh: int, s_q: int, s_k: int,
 
 
 #: the flash kernel's shapes on the models' paths: (label, B, H, KH, Sq,
-#: Sk, D, causal)
+#: Sk, D, causal). The dense, MoE and VLM forwards at B = 2, T = 2048:
+#: GQA 2:1 (qwen3, gemma3's global layers; internvl2's is qwen3's shape),
+#: MHA (olmoe), 6:1 (internlm2), 8:1 (kimi) and 12:1 (mistral); head
+#: sizes 128, 256 and 112
 ATTENTION_PATH_SHAPES = (
     ("whisper encoder", 4, 20, 20, 1500, 1500, 64, False),
     ("whisper decoder", 4, 20, 20, 448, 448, 64, True),
     ("zamba2 shared block", 2, 32, 32, 2048, 2048, 80, True),
+    ("qwen3", 2, 16, 8, 2048, 2048, 128, True),
+    ("gemma3 global", 2, 8, 4, 2048, 2048, 256, True),
+    ("olmoe", 2, 16, 16, 2048, 2048, 128, True),
+    ("internlm2", 2, 48, 8, 2048, 2048, 128, True),
+    ("mistral", 2, 96, 8, 2048, 2048, 128, True),
+    ("kimi", 2, 64, 8, 2048, 2048, 112, True),
 )
 
 

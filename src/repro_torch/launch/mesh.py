@@ -69,16 +69,19 @@ class Mesh:
     def key(self) -> Tuple:
         """Identity of this mesh in cache keys: axes, this rank, the
         device and the backend (a group's ranks are 0..size-1)."""
-        return (tuple(self.shape.items()), self.rank, str(self.device),
-                self.backend)
+        # the axes in the mesh's own order: it is part of its identity
+        axes = tuple(self.shape.items())  # lint: allow-id
+        return (axes, self.rank, str(self.device), self.backend)
 
     def signature(self) -> Tuple:
         """Identity of this mesh in plan-store keys: the axes (so the
         rank count) and the backend, with no rank and no device index, so
         every rank of a mesh — and a rank on ``cuda:1`` as on ``cuda:0``
         — computes one key for one plan. The store's envelope adds the
-        card's name."""
-        return (tuple(self.shape.items()), self.backend)
+        card's name. The axes keep the mesh's own order, which is part of
+        its identity (a mesh of axes (a, b) is not one of (b, a))."""
+        axes = tuple(self.shape.items())  # lint: allow-id
+        return (axes, self.backend)
 
     def describe(self) -> Dict[str, object]:
         return {"shape": dict(self.shape), "rank": self.rank,

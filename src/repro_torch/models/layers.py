@@ -168,6 +168,46 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def banded_local_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, *, window: int,
+                           block: int = 1024) -> torch.Tensor:
+    """Sliding-window causal attention that computes only the band: each
+    q block attends its own and the previous kv block (``window <=
+    block``), one q block at a time, as the reference's scan does.
+
+    q/k/v: [B, H|KH, S, D], S % block == 0, full self-attention shapes.
+    """
+    b, h, s, d = q.shape
+    kh = k.shape[1]
+    group = h // kh
+    if s % block or not 0 < window <= block:
+        raise ValueError(f"banded attention needs S % block == 0 and "
+                         f"0 < window <= block (S={s}, block={block}, "
+                         f"window={window})")
+    nb = s // block
+    scale = d ** -0.5
+    dev = q.device
+    qb = (q.float() * scale).reshape(b, kh, group, nb, block, d)
+    kb = k.reshape(b, kh, nb, block, d)
+    vb = v.reshape(b, kh, nb, block, d)
+    q_pos = torch.arange(block, device=dev)[:, None]
+    k_pos = torch.arange(2 * block, device=dev)[None, :] - block
+    band = (q_pos >= k_pos) & (q_pos - k_pos < window)
+    out = []
+    for i in range(nb):
+        # the previous kv block (zeros before the first, masked) + this one
+        prev_k = kb[:, :, i - 1] if i else torch.zeros_like(kb[:, :, 0])
+        prev_v = vb[:, :, i - 1] if i else torch.zeros_like(vb[:, :, 0])
+        ki = torch.cat([prev_k, kb[:, :, i]], dim=2).float()
+        vi = torch.cat([prev_v, vb[:, :, i]], dim=2).float()
+        mask = band & (k_pos >= 0) if i == 0 else band
+        sc = torch.einsum("bkgqd,bksd->bkgqs", qb[:, :, :, i], ki)
+        sc = torch.where(mask, sc, MASK_VALUE)
+        p = torch.where(mask, torch.softmax(sc, dim=-1), 0.0)
+        out.append(torch.einsum("bkgqs,bksd->bkgqd", p, vi))
+    return torch.stack(out, dim=3).reshape(b, h, s, d).to(q.dtype)
+
+
 def dense_decode_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *,
                            window: Optional[int] = None, kv_len=None,
@@ -288,6 +328,10 @@ def mlp(p: Params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # embedding / unembedding / loss
 # ---------------------------------------------------------------------------
+
+def round_up(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
 
 def embed_specs(vocab_padded: int, d_model: int,
                 tied: bool = True) -> Params:

@@ -232,9 +232,11 @@ def query_session_key(query: Query, *, dedup, mode: str, slack: float,
     annotation mode/slack (they size the capacities), ``jit`` (a no-op in
     the eager port, keyed as in the reference so sessions that differ in it
     never share an entry), the KG table's capacity bucket (the Scan's
-    static shape), and ``mesh_sig`` — ``None`` on one device (the mesh
-    query path is not ported yet). Components are plain ints, strings,
-    floats, bools and tuples, so the tuple equals the reference's.
+    static shape), and ``mesh_sig`` — ``None`` on one device; on a mesh,
+    the mesh's static identity, its exchange and calibration, and the KG's
+    shard-local capacity bucket (``KGEngine._query_mesh_sig``).
+    Components are plain ints, strings, floats, bools and tuples, so the
+    tuple equals the reference's.
     """
     return ("bgp", query.fingerprint(), dedup, mode, float(slack),
             bool(jit), int(kg_bucket_cap), mesh_sig)

@@ -17,11 +17,13 @@ from repro_torch.models import get_model
 
 def make_prefill(cfg) -> Callable:
     """(params, batch) -> (last-position logits, cache). Batch: tokens
-    [B, S] (+ frames for encdec)."""
+    [B, S] (+ patches / frames for vlm / encdec)."""
     model = get_model(cfg.family)
 
     def prefill(params, batch):
         kwargs = {}
+        if cfg.family == "vlm":
+            kwargs["patches"] = batch["patches"]
         if cfg.family == "encdec":
             kwargs["frames"] = batch["frames"]
         with torch.inference_mode():

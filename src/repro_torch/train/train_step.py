@@ -18,17 +18,28 @@ Batch = Dict[str, torch.Tensor]
 
 
 def make_loss_fn(cfg) -> Callable:
-    """(params, batch) -> 0-d float32 loss. Batch keys: tokens, labels
-    [B,S] (+ loss_mask); encdec: + frames [B,n_enc_frames,d_model]."""
+    """(params, batch) -> 0-d float32 loss. Batch keys by family:
+    dense/moe/rwkv/hybrid: tokens, labels [B,S] (+ loss_mask);
+    vlm: + patches [B,n_prepend,VIT_DIM], labels cover the text only;
+    encdec: + frames [B,n_enc_frames,d_model]."""
     model = get_model(cfg.family)
 
     def loss_fn(params, batch: Batch) -> torch.Tensor:
         kwargs = {}
+        if cfg.family == "vlm":
+            kwargs["patches"] = batch["patches"]
         if cfg.family == "encdec":
             kwargs["frames"] = batch["frames"]
         with torch.inference_mode():
             logits = model.apply(cfg, params, batch["tokens"], **kwargs)
-            return softmax_xent(logits, batch["labels"],
+            if cfg.family == "vlm":  # logits cover patches + text
+                logits = logits[:, cfg.n_prepend:]
+            loss = softmax_xent(logits, batch["labels"],
                                 batch.get("loss_mask"), cfg.vocab_size)
+            if cfg.family == "moe":
+                # the reference adds no router penalty either
+                # (``moe.aux_load_loss`` is ported, outside the loss)
+                loss = loss + 0.0
+            return loss
 
     return loss_fn

@@ -158,3 +158,76 @@ def test_engine_counts_its_host_reads():
     # the overflow flag, the source buckets of the cache key, and one
     # flag per hash δ (the ≥4096-row δs read the radix flag)
     assert 3 <= ledger.device_to_host <= 16
+
+
+# ---------------------------------------------------------------------------
+# the repo's invariant linter (tools/lint_invariants.py) over the port
+# ---------------------------------------------------------------------------
+
+#: the port's counterparts of the linter's FINGERPRINT_MODULES, and the
+#: mesh, whose ``Mesh.key`` and ``Mesh.signature`` feed the store key
+PORT_KEY_MODULES = ("plan/ir.py", "api/store.py", "api/cache.py",
+                    "api/engine.py", "query/spec.py", "launch/mesh.py")
+
+
+def _lint_tool():
+    import importlib.util
+    path = os.path.join(REPO, "tools", "lint_invariants.py")
+    spec = importlib.util.spec_from_file_location("lint_invariants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_invariant_linter_passes_over_the_port_key_modules():
+    lint = _lint_tool()
+    expected = {os.path.basename(p) for p in lint.FINGERPRINT_MODULES}
+    assert {os.path.basename(p) for p in PORT_KEY_MODULES} >= expected
+    errors, allowed = [], []
+    for rel in PORT_KEY_MODULES:
+        path = os.path.join(PORT, rel)
+        source = open(path).read()
+        lines = source.splitlines()
+        visitor = lint._StabilityVisitor(path, lines)
+        visitor.visit(ast.parse(source, filename=path))
+        errors += visitor.errors
+        allowed += [(rel, i + 1) for i, line in enumerate(lines)
+                    if lint.ALLOW_PRAGMA in line]
+    assert errors == []
+    # the only pragmas: Mesh.key and Mesh.signature keep the axes in the
+    # mesh's own order, which is part of its identity
+    assert [rel for rel, _ in allowed] == ["launch/mesh.py"] * 2
+    mesh_lines = open(os.path.join(PORT, "launch", "mesh.py")).read() \
+        .splitlines()
+    for _, n in allowed:
+        assert "tuple(self.shape.items())" in mesh_lines[n - 1]
+
+
+def test_invariant_linter_flags_an_unsorted_key_iteration():
+    lint = _lint_tool()
+    source = ("def cache_key(d):\n"
+              "    return tuple(d.items())\n"
+              "def other_key(d):\n"
+              "    return tuple(sorted(d.items()))\n")
+    visitor = lint._StabilityVisitor(os.path.join(REPO, "x.py"),
+                                     source.splitlines())
+    visitor.visit(ast.parse(source))
+    assert len(visitor.errors) == 1 and ":2:" in visitor.errors[0]
+
+
+def test_every_kernel_package_keeps_the_triple():
+    kroot = os.path.join(PORT, "kernels")
+    names = sorted(n for n in os.listdir(kroot)
+                   if os.path.isdir(os.path.join(kroot, n))
+                   and not n.startswith(("_", "csrc")))
+    assert names == ["flash_attention", "mamba2", "radix_partition",
+                     "rowhash", "rwkv6"]
+    for name in names:
+        pkg = os.path.join(kroot, name)
+        for required in ("ref.py", "kernel.py", "ops.py"):
+            assert os.path.exists(os.path.join(pkg, required)), \
+                (name, required)
+        ops = open(os.path.join(pkg, "ops.py")).read()
+        assert "resolve_use_kernel" in ops, name
+        assert "from repro_torch.kernels import resolve_use_kernel" in ops, \
+            name

@@ -35,7 +35,6 @@ from repro.distributed.sharding import init_params as j_init_params
 from repro.models import get_model as j_get_model
 from repro.train.train_step import make_loss_fn as j_make_loss_fn
 from repro_torch.configs import get_config, reduced_config
-from repro_torch.configs.base import QUEUED_ARCH_IDS
 from repro_torch.distributed.sharding import ParamSpec, init_params
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import get_model
@@ -125,15 +124,24 @@ def test_configs_match_the_reference(arch):
 
 
 def test_other_architectures_and_families_are_queued():
-    for arch in QUEUED_ARCH_IDS:
-        j_get_config(arch)          # exists in the reference
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_config(arch)
+    # nothing is queued any more: every architecture and family of the
+    # reference resolves in the port (the other families' parity tests
+    # are tests/test_torch_{dense,moe,vlm}.py)
+    from repro.configs.base import ARCH_IDS as J_ARCH_IDS
+    from repro.models import MODEL_FAMILIES as J_FAMILIES
+    from repro_torch.configs.base import ARCH_IDS
+    from repro_torch.models import MODEL_FAMILIES
+    assert ARCH_IDS == J_ARCH_IDS
+    for arch in ARCH_IDS:
+        assert dataclasses.asdict(get_config(arch)) == \
+            dataclasses.asdict(j_get_config(arch))
+    assert sorted(MODEL_FAMILIES) == sorted(J_FAMILIES)
+    for family in MODEL_FAMILIES:
+        assert get_model(family) is MODEL_FAMILIES[family]
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    for family in ("dense", "moe", "vlm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            get_model(family)
+    with pytest.raises(KeyError):
+        get_model("no-such-family")
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -248,3 +248,168 @@ def test_cache_update_matches_the_reference(index):
         4, 2, 3, 8, 16)
     assert {n: (s.shape, s.init) for n, s in jspecs.items()} == \
         {n: (s.shape, s.init) for n, s in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# the registries and the batched serving driver (launch/serve.py)
+# ---------------------------------------------------------------------------
+
+ALL_ARCHS = ("rwkv6-7b", "internlm2-20b", "qwen3-1.7b", "gemma3-4b",
+             "mistral-large-123b", "olmoe-1b-7b", "kimi-k2-1t-a32b",
+             "internvl2-2b", "zamba2-2.7b", "whisper-large-v3")
+DRIVER_ARGS = ["--requests", "5", "--slots", "2", "--prompt-len", "8",
+               "--gen-len", "4"]
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_architecture_and_family_resolves(arch):
+    import dataclasses
+    from repro_torch.models import MODEL_FAMILIES
+    cfg = get_config(arch)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(j_get_config(arch))
+    model = get_model(cfg.family)
+    assert model is MODEL_FAMILIES[cfg.family]
+    assert type(j_get_model(cfg.family)).__name__ == type(model).__name__
+    for name in ("param_specs", "apply", "cache_specs", "prefill",
+                 "decode_step"):
+        assert callable(getattr(model, name)), name
+    assert len(MODEL_FAMILIES) == 6
+
+
+def _driver_lines(capsys):
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 2, out
+    assert out[0].startswith("served 5 requests / 20 tokens in ")
+    assert out[0].endswith(" tok/s)")
+    assert out[1].startswith("latency p50=") and " p99=" in out[1]
+    return out
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "olmoe-1b-7b", "rwkv6-7b",
+                                  "zamba2-2.7b"])
+def test_serve_driver_runs_on_the_cpu(arch, capsys):
+    from repro_torch.launch import serve as driver
+    reset_launch_counts()
+    assert driver.main(["--device", "cpu", "--arch", arch] +
+                       DRIVER_ARGS) == 0
+    _driver_lines(capsys)
+    assert launch_counts() == {k: 0 for k in launch_counts()}
+
+
+@pytest.mark.parametrize("arch", ["internvl2-2b", "whisper-large-v3"])
+def test_serve_driver_refuses_vlm_and_encdec(arch):
+    from repro_torch.launch import serve as driver
+    with pytest.raises(SystemExit, match="token-only"):
+        driver.main(["--device", "cpu", "--arch", arch] + DRIVER_ARGS)
+
+
+def test_serve_driver_runs_on_the_card_by_default():
+    from repro_torch.device import NoCUDADeviceError
+    from repro_torch.launch import serve as driver
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device is valid")
+    with pytest.raises(NoCUDADeviceError):
+        driver.main(DRIVER_ARGS)
+
+
+def test_serve_driver_forwards_kg_to_kg_serve(capsys):
+    from repro_torch.launch import serve as driver
+    assert driver.main(["--kg", "--device", "cpu", "--rows", "40",
+                        "--tenants", "2", "--shapes", "1", "--batches", "2",
+                        "--batch-rows", "8"]) == 0
+    out = capsys.readouterr().out
+    assert "compiles" in out and "served" not in out.split("\n")[0][:6]
+
+
+def _reference_step_indices(monkeypatch, argv):
+    """The reference driver's decode steps: each one's cache index, input
+    tokens and greedy output tokens, recorded around its jitted step
+    function."""
+    import types
+
+    import repro.launch.serve as j_driver
+    real = j_driver.make_serve_step
+    seen = []
+
+    def recording(cfg):
+        step = jax.jit(real(cfg))
+
+        def call(params, cache, tok):
+            logits, cache_out = step(params, cache, tok)
+            seen.append((int(cache["index"]), np.asarray(tok)[:, 0].tolist(),
+                         np.asarray(jnp.argmax(logits[:, -1], axis=-1))
+                         .tolist()))
+            return logits, cache_out
+
+        call.recording = True
+        return call
+
+    monkeypatch.setattr(j_driver, "make_serve_step", recording)
+    monkeypatch.setattr(j_driver, "jax", types.SimpleNamespace(
+        jit=lambda f: f if getattr(f, "recording", False) else jax.jit(f),
+        random=jax.random, tree_util=jax.tree_util))
+    assert j_driver.main(argv) == 0
+    return seen
+
+
+def test_cache_index_across_waves_pinned(monkeypatch, capsys):
+    # 5 requests over 2 slots: three admission waves of 4 decode steps.
+    # The reference keeps the live cache's 0-d index when it merges a
+    # wave, so its later waves decode from the first wave's end (12, then
+    # 16), past the grown cache's length 12, where each write is clamped
+    # into the last position; and a later wave's first step takes the
+    # tokens the slots' previous requests ended with, not its prefill's.
+    # The port takes the admitted cache's index when every slot is
+    # replaced (the only case with one --gen-len) and the prefill's
+    # tokens (test_serve_driver_matches_greedy_generate_per_wave).
+    from repro_torch.launch import serve as driver
+    ref = _reference_step_indices(monkeypatch, DRIVER_ARGS)
+    _driver_lines(capsys)
+    assert [i for i, _, _ in ref] == list(range(8, 20))
+    assert ref[4][1] == ref[3][2]            # wave 2: both slots
+    assert ref[8][1][0] == ref[7][2][0]      # wave 3: its one request
+    real = driver.make_serve_step
+    seen = []
+
+    def recording(cfg):
+        step = real(cfg)
+
+        def call(params, cache, tok):
+            seen.append(int(cache["index"]))
+            return step(params, cache, tok)
+
+        return call
+
+    monkeypatch.setattr(driver, "make_serve_step", recording)
+    cfg = reduced_config(get_config("qwen3-1.7b"))
+    model = get_model(cfg.family)
+    params = init_params(model.param_specs(cfg),
+                         torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (5, 8))
+    run = driver.serve_requests(cfg, params, prompts, 2, 4,
+                                torch.device("cpu"))
+    assert seen == [8, 9, 10, 11] * 3
+    assert sorted(run["done"]) == [0, 1, 2, 3, 4]
+    assert all(len(v) == 4 for v in run["done"].values())
+    assert run["n_tokens"] == 20
+
+
+def test_serve_driver_matches_greedy_generate_per_wave():
+    # with the index taken from each wave, every request's tokens are
+    # greedy_generate's over its own prompt
+    from repro_torch.launch import serve as driver
+    cfg = reduced_config(get_config("qwen3-1.7b"))
+    model = get_model(cfg.family)
+    params = init_params(model.param_specs(cfg),
+                         torch.Generator().manual_seed(0), "cpu")
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 8))
+    run = driver.serve_requests(cfg, params, prompts, 2, 4,
+                                torch.device("cpu"))
+    for r in range(4):
+        # the same batch of two prompts, and the same cache length (8 + 4):
+        # greedy_generate's tokens 1..3 are the driver's first three (the
+        # driver feeds the prefill's token to its first step)
+        pair = np.stack([prompts[r], prompts[r ^ 1]])
+        first = greedy_generate(cfg, params, {"tokens": torch.as_tensor(
+            pair, dtype=torch.int32)}, 4)
+        assert run["done"][r][:3] == first[0, 1:].tolist(), r
