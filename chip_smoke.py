@@ -205,24 +205,51 @@ no result):
    (``RECURRENCE_DECODE``) too; for flash attention, at every path
    shape, beside ``F.scaled_dot_product_attention`` at the same shape
    (the library yardstick; the port never calls it).
+6b. Training (``train_*_phase``; the models' training route: blockwise
+   attention, ``cfg.remat``; no kernel has a backward, as in the
+   reference): (a) ``qwen3-1.7b`` at full width and depth, B = 2, T =
+   2048, bf16, AdamW, remat "full": 5 steps on one seeded batch, each
+   launching no kernel; finite losses that fall; prints the first and
+   warm step seconds (host clock, ending in a device sync), tokens/s, peak
+   memory, every loss and grad norm. (b) ``python -m
+   repro_torch.launch.train``'s ``main`` at full width and depth on group
+   A's 200,000-row DIS (its KG built on the card: the three δ kernels
+   launch, nothing else), 20 steps at batch 8, sequence 128; the final
+   loss below the first. (c) The driver's loop at full width cut to 2 of
+   28 layers (``TRAIN_CKPT_LAYERS``), 15 steps with a checkpoint every 5
+   and failures injected at steps 7 and 13, into a temporary directory
+   it removes: 2 restarts, and parameters and optimizer state equal to
+   those of the same run without checkpoints or failures; prints bytes
+   written and the save and restore seconds. (d) One step on the card
+   against the same step on the CPU (``TRAIN_CPU_CASES``: qwen3, olmoe,
+   internvl2 on bf16 weights; gemma3 and whisper on float32 weights;
+   qwen3 with two microbatches, remat "dots" and a ``grad_compress`` hook,
+   and qwen3 under Adafactor; full width at ``LM_REDUCED_LAYERS``) within
+   ``TRAIN_CPU_TOL``; the card's train step of rwkv6 and zamba2 raises
+   ``refuse_grad``'s ``RuntimeError``. (a) runs first; then (d)'s inputs
+   are staged (under ``TMPDIR``) and its CPU steps run in a spawned worker
+   process beside (b) and (c).
 7. A ``{"kernels": [...]}`` JSON line for all six kernels (``bound_by``
    says bytes or operations; ``bound_unit`` names the unit that sets the
-   bound: bytes, bf16 products, fp32 elementwise or exp), then as the
-   last line ``{"ok": true, "device": {...}}``.
+   bound: bytes, bf16 products, fp32 elementwise or exp; with phase 6b,
+   ``train_launches``: the δ kernels' launches in the training driver's
+   run, the float kernels' per train step), then as the last line
+   ``{"ok": true, "device": {...}}``.
 
 ``--phase NAME`` (repeatable) runs only the named phase groups, in a
 fresh process: ``main`` (2), ``paper`` (2b), ``query`` (2c), ``verify``
 (2d), ``mesh`` (2e and 2e′; it runs ``main`` and ``query`` first, whose
 results it checks against), ``kg-serve`` (2f), ``store`` (2g),
-``kernels`` (3; it runs ``main`` first, for the δ shapes) and ``lm``
-(4–7). The kernels line then lists the kernels whose phases ran. With no
-arguments every phase runs, in the order above.
+``kernels`` (3; it runs ``main`` first, for the δ shapes), ``lm`` (4–6)
+and ``train`` (6b). The kernels line then lists the kernels whose timing
+phases ran. With no arguments every phase runs, in the order above.
 """
 from __future__ import annotations
 
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -311,6 +338,75 @@ FLASH_REPORT_SHAPE = "whisper encoder"
 #: the tensor cores' dense bf16 rate: what the same attention could use
 BF16_FLOPS_PER_S = 989e12
 
+#: training (phase 6b; ``*_LR`` the training driver's default): (a) the
+#: full-width step's arch, (batch, sequence) and steps; (b) the training
+#: driver at full width and depth on phase 2's group-A DIS (200,000 rows
+#: per source, redundancy 0.75), 20 steps at batch 8 and sequence 128; (c)
+#: the checkpoint leg: full width at 2 of 28 layers (a cut like LM_DEPTH's:
+#: a checkpoint of params and AdamW state is about 6 GB there, about 24 GB
+#: at full depth), its driver flags; (d) the card-against-CPU archs (at
+#: LM_REDUCED_LAYERS, B = LM_REDUCED_BATCH, T = LM_REDUCED_SEQ) and the two
+#: whose recurrence kernels refuse a gradient. (d)'s tolerances, per
+#: weights' dtype: both devices round each op alike; the products
+#: accumulate in another order (cuBLAS against the CPU's kernels; no TF32).
+#: AdamW's first step moves each weight by about ±lr, so where a gradient
+#: is near zero the two devices may move it opposite ways: every weight
+#: within 2.05·lr (plus one bf16 step for bf16 weights) and at most
+#: ``moved_share`` of them apart by more than 1e-5. Measured on the H100
+#: (80GB HBM3, 700 W) in this check's first runs: bf16 first moments
+#: 1.1–9.4% apart (relative L2), 1.5–8.9% of the weights moved apart;
+#: olmoe's share, 12.4%, is its own: each expert's weights take gradients
+#: from the few tokens routed to it, small enough that rounding flips many
+#: of their signs; gemma3 on float32 weights (its random init is chaotic:
+#: grad norm 458) 1.05e-4 in the grad norm, 4.4e-4 in the moments, 0.11%
+#: moved; whisper's is its own too: its near one-hot attention
+#: (LM_REDUCED_F32's note) turns float32 rounding into 1e-5–2e-4 of the
+#: loss (held to the forward comparison's LM_LOSS_ATOL), 1.2–2.3e-3 of the
+#: grad norm, 2.7–2.8% of the first moments and 2.1% of the weights moved.
+#: The microbatched qwen3 case takes the bf16 tolerances. Adafactor bounds
+#: no single weight's step (g/√v̂ with the leaf's RMS clipped to 1), so its
+#: case holds each leaf's steps (the weight after minus before) as a whole,
+#: within 0.15 relative L2, and its factored second moments (the squared
+#: gradients' row and column means) within the bf16 moments' 0.15; set
+#: before its first run on the card
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SHAPE, TRAIN_STEPS, TRAIN_LR = (2, 2048), 5, 1e-3
+TRAIN_DRIVER_ARGV = ["--arch", TRAIN_ARCH, "--rows", str(GROUP_A_ROWS),
+                     "--redundancy", "0.75", "--batch", "8", "--seq", "128",
+                     "--steps", "20"]
+TRAIN_CKPT_LAYERS = 2
+TRAIN_CKPT_ARGV = ("--steps", "15", "--ckpt-every", "5", "--fail-at", "7",
+                   "--fail-at", "13")
+#: (d)'s cases, (label, arch, options): each arch's own step (its
+#: optimizer, remat "full", one microbatch), then qwen3 with two
+#: microbatches accumulated in float32, remat "dots" and a grad_compress
+#: hook (``round_grads_bf16``), and qwen3 under Adafactor, the optimizer
+#: of mistral and kimi (its code is the same for every arch: each leaf of
+#: two or more dims factored over its last two, as mistral's stacked
+#: leaves are; mistral's smallest step, 1 layer of 2.2 B parameters,
+#: would take the CPU about five times qwen3's 20 s in bf16)
+TRAIN_CPU_CASES = (
+    ("qwen3-1.7b", "qwen3-1.7b", {}),
+    ("olmoe-1b-7b", "olmoe-1b-7b", {}),
+    ("internvl2-2b", "internvl2-2b", {}),
+    ("gemma3-4b", "gemma3-4b", {}),
+    ("whisper-large-v3", "whisper-large-v3", {}),
+    ("qwen3-1.7b microbatched", "qwen3-1.7b",
+     {"n_microbatches": 2, "remat": "dots", "grad_compress": True}),
+    ("qwen3-1.7b adafactor", "qwen3-1.7b", {"optimizer": "adafactor"}),
+)
+TRAIN_REFUSED = ("rwkv6-7b", "zamba2-2.7b")
+TRAIN_CPU_TOL = {"float32": {"loss": 1e-4, "gnorm": 1e-3, "moments": 5e-3,
+                             "moved_share": 0.005},
+                 "bfloat16": {"loss": 2e-3, "gnorm": 0.02, "moments": 0.15,
+                              "moved_share": 0.15},
+                 "olmoe-1b-7b": {"loss": 2e-3, "gnorm": 0.02,
+                                 "moments": 0.15, "moved_share": 0.25},
+                 "whisper-large-v3": {"loss": LM_LOSS_ATOL, "gnorm": 1e-2,
+                                      "moments": 0.1, "moved_share": 0.05},
+                 "qwen3-1.7b adafactor": {"loss": 2e-3, "gnorm": 0.02,
+                                          "moments": 0.15, "update": 0.15}}
+
 KERNELS = {
     "rowhash": ("src/repro_torch/kernels/csrc/rowhash.cu",
                 "src/repro/kernels/rowhash/rowhash.py:52"),
@@ -333,7 +429,7 @@ INT_KERNELS = ("rowhash", "hash_neighbor_flags", "radix_partition")
 #: the phase groups ``--phase`` selects, in the order they run, and the
 #: groups each needs run first
 PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve", "store",
-          "kernels", "lm")
+          "kernels", "lm", "train")
 PHASE_NEEDS = {"mesh": ("main", "query"), "kernels": ("main",)}
 #: the groups that need the KG workloads
 KG_PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve",
@@ -2691,6 +2787,16 @@ def _tensors(tree):
         yield tree
 
 
+def _tree_to(tree, where, f32=False):
+    """A tree of tensors on ``where`` (floating leaves as float32 with
+    ``f32``)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, where, f32) for k, v in tree.items()}
+    if f32 and tree.is_floating_point():
+        tree = tree.float()
+    return tree.to(where)
+
+
 def lm_cpu_phase(torch, dev):
     """Full width at reduced depth: the card's logits and loss, and its
     prefill and teacher-forced decode logits, against the port's CPU plain
@@ -2703,13 +2809,6 @@ def lm_cpu_phase(torch, dev):
     from repro_torch.serve import make_prefill, make_serve_step
     from repro_torch.serve.decode import grow_cache
 
-    def to(tree, where, f32):
-        if isinstance(tree, dict):
-            return {k: to(v, where, f32) for k, v in tree.items()}
-        if f32 and tree.is_floating_point():
-            tree = tree.float()
-        return tree.to(where)
-
     for arch in LM_ARCHS:
         cfg = dataclasses.replace(get_config(arch),
                                   n_layers=LM_REDUCED_LAYERS[arch])
@@ -2717,13 +2816,13 @@ def lm_cpu_phase(torch, dev):
         gen = torch.Generator(device=dev).manual_seed(1)
         f32 = arch in LM_REDUCED_F32
         raw = init_params(model.param_specs(cfg), gen, dev)
-        params = to(raw, dev, f32)
+        params = _tree_to(raw, dev, f32)
         batch = lm_batch(torch, cfg, LM_REDUCED_BATCH, LM_REDUCED_SEQ, gen,
                          dev)
         prefill, step = make_prefill(cfg), make_serve_step(cfg)
         out = {}
         for where, p, bt in (("card", params, batch),
-                             ("cpu", to(params, "cpu", f32),
+                             ("cpu", _tree_to(params, "cpu", f32),
                               {k: v.cpu() for k, v in batch.items()})):
             t0 = time.perf_counter()
             fkw = model_inputs(bt)
@@ -2765,10 +2864,10 @@ def lm_cpu_phase(torch, dev):
               f"{arch}: the card differs from the CPU plain path")
         if f32 and cfg.family == "encdec":
             whisper_bf16(torch, arch, cfg, model, raw, batch,
-                         to(raw, "cpu", False))
+                         _tree_to(raw, "cpu", False))
         elif f32:
             bf16_report(torch, arch, cfg, model, raw, batch,
-                        to(raw, "cpu", False))
+                        _tree_to(raw, "cpu", False))
         del params, raw
         torch.cuda.empty_cache()
 
@@ -3037,6 +3136,407 @@ def lm_kernel_phase(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+def train_step_phase(torch, dev, card):
+    """(a) TRAIN_ARCH at full width and depth, TRAIN_SHAPE, bf16 weights,
+    AdamW, remat "full": TRAIN_STEPS steps on one seeded batch, each
+    between a reset and a read of the launch counts (the training route
+    launches no kernel). Returns the launches per step."""
+    import dataclasses
+    import math
+    import statistics as st
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(lm_config(TRAIN_ARCH), remat="full")
+    model = get_model(cfg.family)
+    b, seq = TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(model.param_specs(cfg), gen, dev)
+    # the peak counts from what is allocated now: the parameters
+    torch.cuda.reset_peak_memory_stats(dev)
+    batch = lm_batch(torch, cfg, b, seq, gen, dev)
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    state = opt.init(params)
+    step = make_train_step(cfg, optimizer=opt)
+    n_params = sum(x.numel() for x in _tensors(params))
+    secs, losses, norms, per_step = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        per_step.append(launch_counts())
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated(dev)
+    warm = st.median(secs[1:])
+    log(f"train (a) {TRAIN_ARCH}: {n_params / 1e9:.3f} B parameters, B={b} "
+        f"T={seq} bf16, {opt.name} lr {TRAIN_LR}, remat {cfg.remat}: "
+        f"first step {secs[0]:.3f} s, warm {warm:.3f} s (median of "
+        f"{len(secs) - 1}: {', '.join(f'{x:.3f}' for x in secs[1:])}), "
+        f"{b * seq / warm:.0f} tokens/s, peak device memory "
+        f"{peak / 2**30:.2f} GiB  ({card})")
+    log(f"train (a) losses {json.dumps([round(x, 6) for x in losses])}, "
+        f"grad norms {json.dumps([round(x, 6) for x in norms])}, launches "
+        f"per step {json.dumps(per_step[-1])}")
+    for i, counts in enumerate(per_step):
+        check_counts(counts, {}, f"train (a) step {i}")
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"train (a): non-finite loss or grad norm {losses} {norms}")
+    check(losses[-1] < losses[0],
+          f"train (a): the loss did not fall over {TRAIN_STEPS} steps: "
+          f"{losses}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return per_step[-1]
+
+
+def _driver_output(fn):
+    """``fn()``'s result and its standard output's lines, which go to the
+    log too."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        result = fn()
+    lines = out.getvalue().splitlines()
+    return result, lines
+
+
+def train_driver_phase(torch, dev, card):
+    """(b) ``python -m repro_torch.launch.train``'s ``main`` at
+    TRAIN_DRIVER_ARGV on the card, between a reset and a read of the
+    launch counts: the MapSDI KG built on the card (the δ kernels), then
+    the steps (no launch). Returns the training driver run's launches."""
+    import re
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as driver
+    argv = TRAIN_DRIVER_ARGV + ["--device", str(dev)]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc, lines = _driver_output(lambda: driver.main(argv))
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    for line in lines:
+        log(f"train (b) driver: {line}")
+    kg = re.search(r"^\[mapsdi\] raw=(\d+) kg=(\d+)", lines[0]) if lines \
+        else None
+    final = [re.search(r"final loss ([0-9.]+) \(first ([0-9.]+)\)", x)
+             for x in lines]
+    final = [m for m in final if m]
+    check(rc == 0 and kg is not None and len(final) == 1,
+          f"train (b): rc {rc}, output {lines}")
+    last, first = float(final[0].group(1)), float(final[0].group(2))
+    log(f"train (b) {' '.join(argv)}: {secs:.1f} s in all; KG "
+        f"{kg.group(2)} triples (raw {kg.group(1)}); launches of the run "
+        f"{json.dumps(counts)} (the δ kernels in the KG build)  ({card})")
+    check(last < first, f"train (b): final loss {last} not below the "
+          f"first {first}")
+    check(all(counts[k] > 0 for k in INT_KERNELS) and
+          not any(counts[k] for k in counts if k not in INT_KERNELS),
+          f"train (b): launches {counts}: expected the three δ kernels "
+          "only")
+    return counts
+
+
+def train_ckpt_phase(torch, dev, card):
+    """(c) TRAIN_ARCH at full width cut to TRAIN_CKPT_LAYERS layers: the
+    driver's loop with checkpoints and injected failures
+    (TRAIN_CKPT_ARGV) into a temporary directory the leg removes, then
+    the same run without checkpoints or failures; the final parameters
+    and optimizer state must be equal."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as driver
+    from repro_torch.train.optimizer import tree_leaves
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CKPT_LAYERS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        args = driver.parse_args(list(TRAIN_CKPT_ARGV) + [
+            "--ckpt", root, "--device", str(dev)])
+        t0 = time.perf_counter()
+        run, lines = _driver_output(lambda: driver.train(cfg, args))
+        faulted_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for line in lines:
+        log(f"train (c) driver: {line}")
+    t0 = time.perf_counter()
+    base, _ = _driver_output(lambda: driver.train(cfg, driver.parse_args(
+        list(TRAIN_CKPT_ARGV[:2]) + ["--device", str(dev)])))
+    plain_s = time.perf_counter() - t0
+    st = run.ckpt_stats
+    log(f"train (c) {TRAIN_ARCH}, {cfg.n_layers} of "
+        f"{get_config(TRAIN_ARCH).n_layers} layers, "
+        f"{' '.join(TRAIN_CKPT_ARGV)}: {run.report.restarts} restarts, "
+        f"{st['saves']} saves, {st['bytes'] / 2**30:.2f} GiB written "
+        f"({st['bytes'] / st['saves'] / 2**30:.2f} GiB a checkpoint), "
+        f"save (host copy, blocking) {st['save_s']:.2f} s, "
+        f"writes {st['write_s']:.2f} s (writer thread), {st['restores']} "
+        f"restores {st['restore_s']:.2f} s; run {faulted_s:.1f} s, the "
+        f"same without checkpoints or failures {plain_s:.1f} s; "
+        f"{free / 2**30:.0f} GiB free where it wrote  ({card})")
+    check(run.report.restarts == 2 and st["restores"] == 2,
+          f"train (c): {run.report.restarts} restarts, {st['restores']} "
+          "restores, expected 2")
+    worst, unequal = 0.0, []
+    for part in ("params", "opt_state"):
+        got = dict(tree_leaves(getattr(run, part)))
+        for path, want in tree_leaves(getattr(base, part)):
+            if not torch.equal(got[path], want):
+                unequal.append((part,) + path)
+                worst = max(worst, float((got[path].float() - want.float())
+                                         .abs().max()))
+    log(f"train (c) resumed run against the uninterrupted one: "
+        f"{len(unequal)} unequal leaves, largest difference {worst}")
+    check(not unequal, f"train (c): the resumed run differs from the "
+          f"uninterrupted one in {unequal[:5]} (largest {worst})")
+    del run, base
+    torch.cuda.empty_cache()
+
+
+def train_case_config(arch: str, opts=None):
+    """(d)'s config of ``arch``: full width at LM_REDUCED_LAYERS, with a
+    case's ``remat`` and ``optimizer`` where ``opts`` sets them."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    opts = opts or {}
+    return dataclasses.replace(
+        get_config(arch), n_layers=LM_REDUCED_LAYERS[arch],
+        **{k: opts[k] for k in ("remat", "optimizer") if k in opts})
+
+
+def stage_train_cpu_inputs(torch, dev, out_dir: str) -> None:
+    """(d)'s weights and batch per arch of TRAIN_CPU_CASES, drawn on the
+    card from seeded generators (float32 weights for LM_REDUCED_F32) and
+    saved as CPU copies to ``out_dir/<arch>.in.pt``: the card's steps and
+    the CPU worker's start from the same numbers."""
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import get_model
+    for arch in dict.fromkeys(arch for _, arch, _ in TRAIN_CPU_CASES):
+        cfg = train_case_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = init_params(get_model(cfg.family).param_specs(cfg), gen,
+                             dev)
+        batch = lm_batch(torch, cfg, LM_REDUCED_BATCH, LM_REDUCED_SEQ, gen,
+                         dev)
+        torch.save({"params": _tree_to(params, "cpu",
+                                       arch in LM_REDUCED_F32),
+                    "batch": {k: v.cpu() for k, v in batch.items()}},
+                   os.path.join(out_dir, f"{arch}.in.pt"))
+        del params, batch
+        torch.cuda.empty_cache()
+
+
+def round_grads_bf16(grads, opt_state):
+    """(d)'s ``grad_compress`` hook: every gradient rounded to bfloat16, a
+    lossy compression that both devices apply alike."""
+    import torch
+    from repro_torch.train.optimizer import tree_map
+    return (tree_map(lambda g: g.to(torch.bfloat16).to(g.dtype), grads),
+            opt_state)
+
+
+def train_step_outputs(torch, cfg, params, batch, opts, compress=None):
+    """One train step of ``cfg`` (its optimizer at TRAIN_LR, ``opts``'
+    ``n_microbatches``, ``compress`` as the ``grad_compress`` hook):
+    {"loss", "grad_norm", "params": the new parameters, "moments": the
+    state's moments (AdamW's first moments, 0.1 × the clipped gradient;
+    Adafactor's factored second moments)}, by key path, on the step's
+    device."""
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import make_train_step
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    step = make_train_step(cfg, optimizer=opt, grad_compress=compress,
+                           n_microbatches=opts.get("n_microbatches", 1))
+    new, state, m = step(params, opt.init(params), batch, 0)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "params": dict(tree_leaves(new)),
+            "moments": dict(tree_leaves(state.get("mu", state.get("v"))))}
+
+
+def train_cpu_worker(out_dir: str, index: int) -> float:
+    """(d)'s CPU step of ``TRAIN_CPU_CASES[index]``, in the worker process
+    that runs beside legs (b) and (c), from its arch's staged inputs; its
+    outputs saved to ``out_dir/case<index>.pt``. Returns its seconds. The
+    CPU runs remat "none": on the CPU every remat mode gives the same
+    gradients bit for bit (``tests/test_torch_train_step.py``), so the
+    card's remat is what the case tests, and the CPU skips the
+    recompute's quarter of the work."""
+    import dataclasses
+    import torch
+    # three cores left to the main process's legs (its host side, the
+    # checkpoint writer)
+    torch.set_num_threads(max(1, (os.cpu_count() or 4) - 3))
+    _label, arch, opts = TRAIN_CPU_CASES[index]
+    staged = torch.load(os.path.join(out_dir, f"{arch}.in.pt"), mmap=True)
+    cfg = dataclasses.replace(train_case_config(arch, opts), remat="none")
+    t0 = time.perf_counter()
+    out = train_step_outputs(
+        torch, cfg, staged["params"], staged["batch"], opts,
+        round_grads_bf16 if opts.get("grad_compress") else None)
+    secs = time.perf_counter() - t0
+    torch.save(out, os.path.join(out_dir, f"case{index}.pt"))
+    return secs
+
+
+def start_train_cpu_worker(torch, dev):
+    """(the pool, one future per case, the directory it works in): (d)'s
+    inputs staged into a temporary directory (under ``TMPDIR``), then one
+    spawned process running :func:`train_cpu_worker` on each case in
+    turn."""
+    import multiprocessing as mp
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_cpu_")
+    stage_train_cpu_inputs(torch, dev, out_dir)
+    pool = ProcessPoolExecutor(max_workers=1,
+                               mp_context=mp.get_context("spawn"))
+    futures = [pool.submit(train_cpu_worker, out_dir, i)
+               for i in range(len(TRAIN_CPU_CASES))]
+    return pool, futures, out_dir
+
+
+def _rel_l2(torch, got, want) -> float:
+    return float((got.float() - want.float()).norm()
+                 / torch.clamp(want.float().norm(), min=1e-30))
+
+
+def train_cpu_phase(torch, dev, worker):
+    """(d) One train step on the card against the same step on the CPU
+    (the worker's, started before (b) on the staged inputs), full width
+    at LM_REDUCED_LAYERS depth, for each of TRAIN_CPU_CASES (gemma3 and
+    whisper on float32 weights, as LM_REDUCED_F32 says; qwen3 also with
+    two microbatches, remat "dots" and a ``grad_compress`` hook, and
+    under Adafactor): the loss, the grad norm, the moments and the
+    parameters after the step within TRAIN_CPU_TOL (per weights' dtype;
+    some cases their own). Each case's card step runs before its CPU
+    result is awaited, so the worker's later cases run beside the card's
+    earlier ones. Then rwkv6 and zamba2: their recurrence kernels have no
+    backward, so the card's train step raises refuse_grad's error."""
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import make_optimizer, tree_leaves
+    from repro_torch.train.train_step import make_train_step
+    _pool, futures, out_dir = worker
+    waited = 0.0
+    staged_bytes = sum(os.path.getsize(os.path.join(out_dir, n))
+                       for n in os.listdir(out_dir) if n.endswith(".in.pt"))
+    for index, ((label, arch, opts), future) in enumerate(
+            zip(TRAIN_CPU_CASES, futures)):
+        cfg = train_case_config(arch, opts)
+        staged = torch.load(os.path.join(out_dir, f"{arch}.in.pt"),
+                            mmap=True)
+        dtype = "float32" if arch in LM_REDUCED_F32 else "bfloat16"
+        tol = TRAIN_CPU_TOL.get(label, TRAIN_CPU_TOL[dtype])
+        hook_calls = []
+
+        def hook(grads, opt_state):
+            hook_calls.append(1)
+            return round_grads_bf16(grads, opt_state)
+
+        before = _tree_to(staged["params"], dev)
+        t0 = time.perf_counter()
+        card = train_step_outputs(
+            torch, cfg, before,
+            {k: v.to(dev) for k, v in staged["batch"].items()}, opts,
+            hook if opts.get("grad_compress") else None)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_s = future.result()
+        waited += time.perf_counter() - t0
+        path = os.path.join(out_dir, f"case{index}.pt")
+        staged_bytes += os.path.getsize(path)
+        # compared on the card, one CPU leaf moved over at a time
+        cpu = torch.load(path, mmap=True)
+        moment_rel = max(_rel_l2(torch, card["moments"][k], want.to(dev))
+                         for k, want in cpu["moments"].items())
+        worst_excess, moved, total, update_rel = 0.0, 0, 0, 0.0
+        old = dict(tree_leaves(before))
+        for k, want in cpu["params"].items():
+            want, got = want.to(dev), card["params"][k]
+            # AdamW: each weight's step is about ±lr; Adafactor's steps
+            # are compared as a whole, weight minus its value before
+            update_rel = max(update_rel, _rel_l2(
+                torch, got.float() - old[k].float(),
+                want.float() - old[k].float()))
+            diff = (got.float() - want.float()).abs()
+            bound = 2.05 * TRAIN_LR + (2.0 ** -8 * want.float().abs()
+                                       if want.dtype == torch.bfloat16
+                                       else 0.0)
+            worst_excess = max(worst_excess,
+                               float((diff - bound).max()))
+            moved += int((diff > 1e-5).sum())
+            total += diff.numel()
+        (gl, gn), (cl, cn) = ((x["loss"], x["grad_norm"])
+                              for x in (card, cpu))
+        hooked = (f", grad_compress hook called {len(hook_calls)} time(s)"
+                  if opts.get("grad_compress") else "")
+        log(f"train (d) {label}: {cfg.n_layers} layers T={LM_REDUCED_SEQ} "
+            f"{dtype} weights, {cfg.optimizer}, remat {cfg.remat}, "
+            f"{opts.get('n_microbatches', 1)} microbatch(es){hooked}"
+            f": one step on the card {card_s:.2f} s, on the CPU "
+            f"{cpu_s:.2f} s; loss {gl:.6f} vs {cl:.6f}, grad norm {gn:.6f} "
+            f"vs {cn:.6f}, moments' largest relative L2 difference "
+            f"{moment_rel:.3g}, weights' steps' largest relative L2 "
+            f"difference {update_rel:.3g}, parameters moved apart by more "
+            f"than 1e-5: {moved / total:.4%} (largest excess over the "
+            f"AdamW bound {worst_excess:.3g})")
+        close = (abs(gl - cl) <= tol["loss"]
+                 and abs(gn - cn) <= tol["gnorm"] * cn
+                 and moment_rel <= tol["moments"])
+        if cfg.optimizer == "adamw":
+            close = (close and worst_excess <= 0
+                     and moved <= tol["moved_share"] * total)
+        else:
+            close = close and update_rel <= tol["update"]
+        check(close, f"train (d) {label}: the card's step differs from the "
+              f"CPU's beyond {tol}")
+        check(len(hook_calls) == bool(opts.get("grad_compress")),
+              f"train (d) {label}: grad_compress hook called "
+              f"{len(hook_calls)} times")
+        del staged, before, old, card, cpu
+        os.remove(path)
+        torch.cuda.empty_cache()
+    log(f"train (d) staged through {out_dir}: {staged_bytes / 2**30:.2f} "
+        f"GiB written in all (inputs and the CPU's outputs); waited "
+        f"{waited:.1f} s for the CPU worker")
+    for arch in TRAIN_REFUSED:
+        cfg = train_case_config(arch)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        params = init_params(get_model(cfg.family).param_specs(cfg), gen,
+                             dev)
+        batch = lm_batch(torch, cfg, LM_REDUCED_BATCH, LM_REDUCED_SEQ, gen,
+                         dev)
+        opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+        step = make_train_step(cfg, optimizer=opt)
+        state = opt.init(params)
+        try:
+            step(params, state, batch, 0)
+            raised = None
+        except RuntimeError as e:            # the expected refusal
+            raised = str(e)
+        log(f"train (d) {arch}: the card's train step raises "
+            f"RuntimeError: {raised}")
+        check(raised is not None and "has no backward" in raised,
+              f"train (d) {arch}: the card's train step did not raise "
+              f"refuse_grad's error ({raised})")
+        del params, state
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 
 def selected_phases(argv):
     """The phase groups ``--phase NAME ...`` selects with the groups they
@@ -3081,7 +3581,7 @@ def main() -> int:
               "the root of a checkout", file=sys.stderr)
         return 2
     launches, errs, bad, times = {}, {}, {}, {}
-    mesh_launches = serve_launches = None
+    mesh_launches = serve_launches = train_launches = None
     t_phase = [time.perf_counter()]
 
     def done(name: str) -> None:
@@ -3162,6 +3662,29 @@ def main() -> int:
                 bad.update(lm_bad)
                 times.update(lm_times)
                 done("lm kernels")
+            if "train" in phases:
+                # float32 products in full float32, as in the lm phases
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+                # (a) first, its step times free of the worker; (d)'s CPU
+                # steps run in a worker beside (b) and (c)
+                per_step = train_step_phase(torch, dev, card)
+                done("train (a) full-width step")
+                worker = start_train_cpu_worker(torch, dev)
+                stack.callback(shutil.rmtree, worker[2], ignore_errors=True)
+                stack.callback(worker[0].shutdown, wait=True,
+                               cancel_futures=True)
+                done("train (d) inputs staged")
+                driver_counts = train_driver_phase(torch, dev, card)
+                done("train (b) driver")
+                train_ckpt_phase(torch, dev, card)
+                done("train (c) checkpoint and restart")
+                train_launches = {
+                    **driver_counts,
+                    **{k: per_step[k] for k in per_step
+                       if k not in INT_KERNELS}}
+                train_cpu_phase(torch, dev, worker)
+                done("train (d) card against cpu")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3177,6 +3700,8 @@ def main() -> int:
                if name in INT_KERNELS and mesh_launches else {}),
             **({"serve_launches": serve_launches[name]}
                if name in INT_KERNELS and serve_launches else {}),
+            **({"train_launches": train_launches[name]}
+               if train_launches else {}),
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -11,7 +11,11 @@ The full-sequence self-attention of the encoder and of the training
 decoder runs the flash kernel on the card (``kernels/flash_attention``;
 the reference's ``use_pallas=True`` route); cached self-attention and
 cross-attention take the plain paths, as the reference hard-codes.
-Layers are a Python loop over the stacked ``[L]`` weights.
+Layers are a Python loop over the stacked ``[L]`` weights. With
+``train=True`` (the training route, the one the reference's
+differentiated scans take) the full-sequence self-attention runs the
+blockwise path and every encoder and decoder layer runs under
+``cfg.remat``.
 
 Decode state: per-layer self KV cache (grows, updated in place by
 ``decode_step``) + per-layer cross K/V (computed once at prefill from the
@@ -27,7 +31,8 @@ from repro_torch.distributed.sharding import ParamSpec
 
 from .layers import (Params, attention, attn_out, attn_specs, cache_update,
                      embed, embed_specs, gelu, layer_norm, layer_params, mlp,
-                     mlp_specs, sinusoidal_positions, stack_specs, unembed)
+                     mlp_specs, remat, sinusoidal_positions, stack_specs,
+                     unembed, unstack)
 
 F32 = torch.float32
 #: rows of the learned decoder positions
@@ -87,19 +92,24 @@ def param_specs(cfg) -> Params:
 # encoder
 # ---------------------------------------------------------------------------
 
-def encode(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
+def _enc_layer(p: Params, x: torch.Tensor, train: bool) -> torch.Tensor:
+    q, k, v = _qkv_noro(p["attn"], _norm(x, p["ln_attn"]))
+    o = attention(q, k, v, causal=False, use_pallas=not train)
+    x = x + attn_out(p["attn"], o)
+    return x + mlp(p["mlp"], _norm(x, p["ln_mlp"]), act=gelu)
+
+
+def encode(cfg, params: Params, frames: torch.Tensor,
+           train: bool = False) -> torch.Tensor:
     """frames [B, n_enc_frames, d_model] (stub frontend output), cast to
     the weights' dtype: bf16 as in the reference (whose encoder runs in
     bf16 only), or float32 for float32 weights."""
     x = frames.to(params["embed"]["embedding"].dtype)
     x = x + sinusoidal_positions(x.shape[1], cfg.d_model,
                                  x.device)[None].to(x.dtype)
-    for i in range(cfg.n_layers):
-        p = layer_params(params["enc"]["layers"], i)
-        q, k, v = _qkv_noro(p["attn"], _norm(x, p["ln_attn"]))
-        o = attention(q, k, v, causal=False, use_pallas=True)
-        x = x + attn_out(p["attn"], o)
-        x = x + mlp(p["mlp"], _norm(x, p["ln_mlp"]), act=gelu)
+    layer = remat(cfg, _enc_layer, train)
+    for p in unstack(params["enc"]["layers"], cfg.n_layers):
+        x = layer(p, x, train)
     return _norm(x, params["enc"]["ln_f"])
 
 
@@ -108,12 +118,13 @@ def encode(cfg, params: Params, frames: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _dec_layer(cfg, p: Params, x: torch.Tensor, enc_kv, self_kv, index,
-               kv_len):
-    """enc_kv = (ek, ev) cross K/V [B,H,Senc,Dh]; self_kv None (train, full
-    causal: the flash kernel) or (ck, cv) cache slices."""
+               kv_len, train: bool = False):
+    """enc_kv = (ek, ev) cross K/V [B,H,Senc,Dh]; self_kv None (full
+    causal: the flash kernel, or with ``train`` the blockwise path) or
+    (ck, cv) cache slices."""
     q, k, v = _qkv_noro(p["attn"], _norm(x, p["ln_attn"]))
     if self_kv is None:
-        o = attention(q, k, v, causal=True, use_pallas=True)
+        o = attention(q, k, v, causal=True, use_pallas=not train)
         new_self = None
     else:
         ck, cv = cache_update(self_kv[0], self_kv[1], k, v, index)
@@ -142,24 +153,30 @@ def cross_kv(cfg, params: Params, enc_out: torch.Tensor
 
 
 def decode_train(cfg, params: Params, tokens: torch.Tensor,
-                 enc_out: torch.Tensor) -> torch.Tensor:
+                 enc_out: torch.Tensor, train: bool = False) -> torch.Tensor:
     x = embed(params["embed"], tokens)
     x = x + params["dec_pos"][:x.shape[1]][None].to(x.dtype)
     ek, ev = cross_kv(cfg, params, enc_out)
-    for i in range(cfg.n_layers):
-        x, _ = _dec_layer(cfg, layer_params(params["dec"]["layers"], i), x,
-                          (ek[i], ev[i]), None, None, None)
+    def body(p, x, k, v):
+        return _dec_layer(cfg, p, x, (k, v), None, None, None, train)[0]
+
+    layer = remat(cfg, body, train)
+    for p, k, v in zip(unstack(params["dec"]["layers"], cfg.n_layers),
+                       ek.unbind(0), ev.unbind(0)):
+        x = layer(p, x, k, v)
     x = _norm(x, params["dec"]["ln_f"])
     return unembed(params["embed"], x)
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
-          frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+          frames: Optional[torch.Tensor] = None,
+          train: bool = False) -> torch.Tensor:
     """tokens [B,S], frames [B,n_enc_frames,d_model] -> logits
-    [B,S,vocab_padded]."""
+    [B,S,vocab_padded]; ``train`` takes the training route."""
     if frames is None:
         raise ValueError("enc-dec apply() needs `frames`")
-    return decode_train(cfg, params, tokens, encode(cfg, params, frames))
+    return decode_train(cfg, params, tokens,
+                        encode(cfg, params, frames, train), train)
 
 
 # ---------------------------------------------------------------------------

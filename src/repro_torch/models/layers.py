@@ -14,10 +14,13 @@ so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.flash_attention import flash_attention
@@ -44,6 +47,56 @@ def layer_params(tree, *index: int):
     if isinstance(tree, torch.Tensor):
         return tree[index]
     return {k: layer_params(v, *index) for k, v in tree.items()}
+
+
+def unstack(tree, n: int) -> List[Any]:
+    """The ``n`` layers of a stacked tree as a list of trees of views
+    (``torch.unbind`` on every leaf): the training route's per-layer
+    parameters, whose gradients come back as one stack per leaf."""
+    if isinstance(tree, torch.Tensor):
+        return list(torch.unbind(tree, 0))
+    per_key = {k: unstack(v, n) for k, v in tree.items()}
+    return [{k: per_key[k][i] for k in tree} for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# recomputation in the backward (the reference's jax.checkpoint)
+# ---------------------------------------------------------------------------
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the matrix products' outputs
+    (``jax.checkpoint_policies.checkpoint_dots``), recompute the rest."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_DOTS = {torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default}
+
+
+def remat(cfg, fn: Callable, train: bool = True) -> Callable:
+    """A layer under ``cfg.remat`` on the training route, as the
+    reference's ``_remat``: ``"none"`` runs it as it is, ``"dots"`` saves
+    the matrix products' outputs and recomputes the rest in the backward,
+    any other value (``"full"``) saves only the layer's inputs. Off the
+    training route (``train`` false) ``fn`` itself."""
+    if not train or cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def recomputed(fn: Callable, *inputs: torch.Tensor) -> Callable:
+    """``fn`` with its intermediates recomputed in the backward (the
+    reference's ``jax.checkpoint`` around an attention scan body) when
+    autograd records ``inputs``; ``fn`` itself otherwise, so forward-only
+    calls are unchanged."""
+    if not any(x.requires_grad for x in inputs):
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -145,10 +198,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     m = torch.full((b, kh, group * s_q), MASK_VALUE, device=dev)
     l_sum = torch.zeros((b, kh, group * s_q), device=dev)
     acc = torch.zeros((b, kh, group * s_q, d), device=dev)
-    for start in range(0, s_k, block_k):
-        kc = k[:, :, start:start + block_k].float()
-        vc = v[:, :, start:start + block_k].float()
-        s = qf @ kc.transpose(-1, -2)
+
+    def step(m, l_sum, acc, kc, vc, start: int):
+        s = qf @ kc.float().transpose(-1, -2)
         k_pos = start + torch.arange(block_k, device=dev)
         mask = k_pos[None, :] < kv_len
         if causal:
@@ -160,9 +212,15 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.exp(s - m_new[..., None])
         p = torch.where(mask, p, 0.0)
         alpha = torch.exp(m - m_new)
-        l_sum = alpha * l_sum + p.sum(-1)
-        acc = acc * alpha[..., None] + p @ vc
-        m = m_new
+        return (m_new, alpha * l_sum + p.sum(-1),
+                acc * alpha[..., None] + p @ vc.float())
+
+    # the backward recomputes each block's scores, as the reference's
+    # checkpointed scan body does: O(S·block) saved, not O(S·S)
+    step = recomputed(step, q, k, v)
+    for start in range(0, s_k, block_k):
+        m, l_sum, acc = step(m, l_sum, acc, k[:, :, start:start + block_k],
+                             v[:, :, start:start + block_k], start)
     l_sum = torch.where(l_sum == 0.0, 1.0, l_sum)
     out = (acc / l_sum[..., None]).reshape(b, h, s_q, d)
     return out.to(q.dtype)
@@ -193,18 +251,24 @@ def banded_local_attention(q: torch.Tensor, k: torch.Tensor,
     q_pos = torch.arange(block, device=dev)[:, None]
     k_pos = torch.arange(2 * block, device=dev)[None, :] - block
     band = (q_pos >= k_pos) & (q_pos - k_pos < window)
+
+    def band_block(qi, ki, vi, first: bool):
+        mask = band & (k_pos >= 0) if first else band
+        sc = torch.einsum("bkgqd,bksd->bkgqs", qi, ki.float())
+        sc = torch.where(mask, sc, MASK_VALUE)
+        p = torch.where(mask, torch.softmax(sc, dim=-1), 0.0)
+        return torch.einsum("bkgqs,bksd->bkgqd", p, vi.float())
+
+    band_block = recomputed(band_block, q, k, v)   # one band saved
     out = []
     for i in range(nb):
         # the previous kv block (zeros before the first, masked) + this one
         prev_k = kb[:, :, i - 1] if i else torch.zeros_like(kb[:, :, 0])
         prev_v = vb[:, :, i - 1] if i else torch.zeros_like(vb[:, :, 0])
-        ki = torch.cat([prev_k, kb[:, :, i]], dim=2).float()
-        vi = torch.cat([prev_v, vb[:, :, i]], dim=2).float()
-        mask = band & (k_pos >= 0) if i == 0 else band
-        sc = torch.einsum("bkgqd,bksd->bkgqs", qb[:, :, :, i], ki)
-        sc = torch.where(mask, sc, MASK_VALUE)
-        p = torch.where(mask, torch.softmax(sc, dim=-1), 0.0)
-        out.append(torch.einsum("bkgqs,bksd->bkgqd", p, vi))
+        out.append(band_block(qb[:, :, :, i],
+                              torch.cat([prev_k, kb[:, :, i]], dim=2),
+                              torch.cat([prev_v, vb[:, :, i]], dim=2),
+                              i == 0))
     return torch.stack(out, dim=3).reshape(b, h, s, d).to(q.dtype)
 
 

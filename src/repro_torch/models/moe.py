@@ -171,12 +171,14 @@ def _ffn(cfg) -> tf.FFN:
     return lambda p, h: moe_block(cfg, p["moe"], h)
 
 
-def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+def apply(cfg, params: Params, tokens: torch.Tensor,
+          train: bool = False) -> torch.Tensor:
     """tokens [B,S] -> logits [B,S,V_padded] (no banded route, as in the
-    reference)."""
+    reference); ``train`` takes the dense family's training route."""
     x = tf._embed(params, tokens, None)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = tf.run_layers(cfg, params["layers"], x, positions, _ffn(cfg))
+    x = tf.run_layers(cfg, params["layers"], x, positions, _ffn(cfg),
+                      train=train)
     return unembed(params["embed"], rms_norm(x, params["ln_f"]))
 
 

@@ -5,6 +5,11 @@ Block = time-mix (WKV6 recurrence over [H, N, N] states) + channel-mix
 lerp); the decay ``w`` is data-dependent via a small LoRA. The WKV6
 recurrence runs the CUDA kernel on the card (``kernels/rwkv6``).
 
+``apply(..., train=True)`` is the training route: each block under
+``cfg.remat``, as the reference's differentiated scan takes it; the
+recurrence keeps its dispatcher, whose CUDA kernel has no backward and
+refuses inputs that require grad.
+
 Serving: ``prefill`` runs the prompt from zero state and returns the
 token-shift and WKV states; ``decode_step`` carries them one token on.
 """
@@ -19,7 +24,7 @@ from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.rwkv6 import rwkv6 as wkv6
 
 from .layers import (Params, embed, embed_specs, layer_norm, layer_params,
-                     stack_specs, unembed)
+                     remat, stack_specs, unembed, unstack)
 
 F32 = torch.float32
 
@@ -150,12 +155,19 @@ def block_fwd(cfg, p: Params, x, state):
 # entry point
 # ---------------------------------------------------------------------------
 
-def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B,S] -> logits [B,S,vocab_padded]."""
+def _block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return block_fwd(cfg, p, x, None)[0]
+
+
+def apply(cfg, params: Params, tokens: torch.Tensor,
+          train: bool = False) -> torch.Tensor:
+    """tokens [B,S] -> logits [B,S,vocab_padded]; ``train`` takes the
+    training route."""
     x = embed(params["embed"], tokens)
     x = layer_norm(x, params["ln_in"]["w"], params["ln_in"]["b"])
-    for i in range(cfg.n_layers):
-        x, _ = block_fwd(cfg, layer_params(params["layers"], i), x, None)
+    block = remat(cfg, _block, train)
+    for p in unstack(params["layers"], cfg.n_layers):
+        x = block(cfg, p, x)
     x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
     return unembed(params["embed"], x)
 

@@ -13,6 +13,11 @@ layers take :func:`~.layers.banded_local_attention` (plain PyTorch, as
 in the reference) where :func:`_banded_ok` holds, in the period
 structure of the reference's ``scan_layers_banded``.
 
+``apply(..., train=True)`` is the training route, the one the
+reference's differentiated scan takes: the full-sequence attention runs
+the blockwise path (the flash kernel has no backward), and each layer
+runs under ``cfg.remat`` (:func:`~.layers.remat`).
+
 ``prefill`` and ``decode_step`` run every layer against its slice of the
 KV cache with the reference's ``use_pallas=False``: the blockwise path
 for a prefill, the dense decode path for a step; they launch no kernel.
@@ -31,7 +36,8 @@ import torch
 from .layers import (Params, attention, attn_out, attn_qkv, attn_specs,
                      banded_local_attention, cache_update, embed,
                      embed_specs, kv_cache_specs, layer_params, mlp,
-                     mlp_specs, norm_specs, rms_norm, stack_specs, unembed)
+                     mlp_specs, norm_specs, remat, rms_norm, stack_specs,
+                     unembed, unstack)
 
 #: the feed-forward half of a layer: (layer params, normed x) -> delta
 FFN = Callable[[Params, torch.Tensor], torch.Tensor]
@@ -81,12 +87,14 @@ def layer_windows(cfg) -> List[int]:
 # ---------------------------------------------------------------------------
 
 def layer_fwd(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
-              window: int, ffn: FFN = dense_ffn) -> torch.Tensor:
-    """Full-sequence causal layer (the forward's compute): attention on
-    the flash kernel's route."""
+              window: int, ffn: FFN = dense_ffn,
+              train: bool = False) -> torch.Tensor:
+    """Full-sequence causal layer: attention on the flash kernel's route,
+    or with ``train`` on the blockwise path."""
     h = rms_norm(x, p["ln_attn"])
     q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta)
-    o = attention(q, k, v, causal=True, window=window, use_pallas=True)
+    o = attention(q, k, v, causal=True, window=window,
+                  use_pallas=not train)
     x = x + attn_out(p["attn"], o)
     return x + ffn(p, rms_norm(x, p["ln_mlp"]))
 
@@ -114,18 +122,23 @@ def _local_layer_fwd(cfg, p: Params, x: torch.Tensor,
 
 def run_layers(cfg, layers: Params, x: torch.Tensor,
                positions: torch.Tensor, ffn: FFN = dense_ffn,
-               banded: bool = False) -> torch.Tensor:
+               banded: bool = False, train: bool = False) -> torch.Tensor:
     """Every layer of the stack in order. With ``banded`` (the reference's
     ``scan_layers_banded``): each period of ``local_global`` local layers
     and one global layer runs its local layers banded and its global
     layer on the flash route with window 0; the trailing local layers of
-    a partial period (gemma3: 34 = 5·6 + 4) run banded too."""
-    for i, window in enumerate(layer_windows(cfg)):
-        p = layer_params(layers, i)
+    a partial period (gemma3: 34 = 5·6 + 4) run banded too. With
+    ``train``: the blockwise path in place of the flash route, every
+    layer under ``cfg.remat``."""
+    windows = layer_windows(cfg)
+    for p, window in zip(unstack(layers, len(windows)), windows):
         if banded and window:
-            x = _local_layer_fwd(cfg, p, x, positions)
+            def body(p, x):
+                return _local_layer_fwd(cfg, p, x, positions)
         else:
-            x = layer_fwd(cfg, p, x, positions, window, ffn)
+            def body(p, x, window=window):
+                return layer_fwd(cfg, p, x, positions, window, ffn, train)
+        x = remat(cfg, body, train)(p, x)
     return x
 
 
@@ -142,13 +155,15 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
-          inputs_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+          inputs_embeds: Optional[torch.Tensor] = None,
+          train: bool = False) -> torch.Tensor:
     """tokens [B,S] -> logits [B,S,V_padded]. ``inputs_embeds`` (vlm) is
-    prepended before the token embeddings."""
+    prepended before the token embeddings; ``train`` takes the training
+    route."""
     x = _embed(params, tokens, inputs_embeds)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     x = run_layers(cfg, params["layers"], x, positions,
-                   banded=_banded_ok(cfg, x.shape[1]))
+                   banded=_banded_ok(cfg, x.shape[1]), train=train)
     x = rms_norm(x, params["ln_f"])
     return unembed(params["embed"], x)
 

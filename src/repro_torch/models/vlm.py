@@ -41,13 +41,15 @@ def project_patches(p: Params, patches: torch.Tensor) -> torch.Tensor:
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
-          patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+          patches: Optional[torch.Tensor] = None,
+          train: bool = False) -> torch.Tensor:
     """tokens [B, S - n_prepend]; patches [B, n_prepend, VIT_DIM].
-    Returns logits over ALL positions (the caller masks the patch span)."""
+    Returns logits over ALL positions (the caller masks the patch span);
+    ``train`` takes the dense family's training route."""
     if patches is None:
         raise ValueError("vlm apply() needs `patches`")
     emb = project_patches(params["projector"], patches)
-    return tf.apply(cfg, params, tokens, inputs_embeds=emb)
+    return tf.apply(cfg, params, tokens, inputs_embeds=emb, train=train)
 
 
 cache_specs = tf.cache_specs

@@ -7,7 +7,11 @@ Mamba2 parameters are stacked [groups, layers per group, ...] as in the
 JAX package; the port loops over them. The SSD scan runs the CUDA kernel
 on the card (``kernels/mamba2``), and so does the shared block's
 full-sequence attention (``kernels/flash_attention``, the reference's
-``use_pallas=True`` route).
+``use_pallas=True`` route). ``apply(..., train=True)`` is the training
+route: the shared block's attention on the blockwise path, each Mamba2
+layer under ``cfg.remat``, as the reference's differentiated scans take
+them; the SSD scan keeps its dispatcher, whose CUDA kernel has no
+backward and refuses inputs that require grad.
 
 Serving: ``prefill`` fills the conv/SSD states and the shared block's
 per-group KV cache; ``decode_step`` appends one token. The cache's
@@ -26,7 +30,8 @@ from repro_torch.kernels.mamba2 import mamba2_ssd
 
 from .layers import (Params, attention, attn_out, attn_qkv, attn_specs,
                      cache_update, embed, embed_specs, layer_params, mlp,
-                     mlp_specs, norm_specs, rms_norm, stack_specs, unembed)
+                     mlp_specs, norm_specs, remat, rms_norm, stack_specs,
+                     unembed, unstack)
 
 CONV_K = 4
 F32 = torch.float32
@@ -143,16 +148,18 @@ def mamba_block(cfg, p: Params, x: torch.Tensor, state
 # ---------------------------------------------------------------------------
 
 def shared_block(cfg, p: Params, x: torch.Tensor, x0: torch.Tensor,
-                 positions: torch.Tensor, kv=None, index=None, kv_len=None
+                 positions: torch.Tensor, kv=None, index=None, kv_len=None,
+                 train: bool = False
                  ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """kv = (ck, cv), one invocation's cache slice, or None for the
-    full-sequence form (the flash kernel's path)."""
+    full-sequence form (the flash kernel's path; with ``train`` the
+    blockwise path)."""
     cat = torch.cat([x, x0], dim=-1)
     hin = cat @ p["in_proj"]
     hin = rms_norm(hin, p["ln_attn"])
     q, k, v = attn_qkv(p["attn"], hin, positions, rope_theta=cfg.rope_theta)
     if kv is None:
-        o = attention(q, k, v, causal=True, use_pallas=True)
+        o = attention(q, k, v, causal=True, use_pallas=not train)
         new_kv = None
     else:
         ck, cv = cache_update(kv[0], kv[1], k, v, index)
@@ -168,16 +175,23 @@ def shared_block(cfg, p: Params, x: torch.Tensor, x0: torch.Tensor,
 # entry points
 # ---------------------------------------------------------------------------
 
-def apply(cfg, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B,S] -> logits [B,S,vocab_padded]."""
+def _mamba_layer(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return mamba_block(cfg, p, x, (None, None))[0]
+
+
+def apply(cfg, params: Params, tokens: torch.Tensor,
+          train: bool = False) -> torch.Tensor:
+    """tokens [B,S] -> logits [B,S,vocab_padded]; ``train`` takes the
+    training route."""
     x = embed(params["embed"], tokens)
     x0 = x
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for g in range(n_groups(cfg)):
-        x, _ = shared_block(cfg, params["shared"], x, x0, positions)
-        for i in range(cfg.shared_attn_every):
-            x, _ = mamba_block(cfg, layer_params(params["groups"], g, i), x,
-                               (None, None))
+    layer = remat(cfg, _mamba_layer, train)
+    for group in unstack(params["groups"], n_groups(cfg)):
+        x, _ = shared_block(cfg, params["shared"], x, x0, positions,
+                            train=train)
+        for p in unstack(group, cfg.shared_attn_every):
+            x = layer(cfg, p, x)
     x = rms_norm(x, params["ln_f"])
     return unembed(params["embed"], x)
 
