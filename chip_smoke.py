@@ -229,19 +229,38 @@ no result):
    ``refuse_grad``'s ``RuntimeError``. (a) runs first; then (d)'s inputs
    are staged (under ``TMPDIR``) and its CPU steps run in a spawned worker
    process beside (b) and (c).
+6c. Sharded training (``train_mesh_phase``): 4 ranks sharing the card
+   over gloo (``launch_ranks``), each leg against its one-rank run on the
+   card (this process, first) within ``TRAIN_MESH_TOL``: (a) qwen3-1.7b
+   at full width, 8 of 28 layers, on ``(data=2, model=2)`` under
+   ``auto_rules`` (DTensor placements; the data-axis gradient
+   all-reduce), (b) gemma3-4b at 6 of 34 layers under its FSDP rules, on
+   float32 weights, (c) olmoe-1b-7b at 2 of 16 layers with the local MoE
+   dispatch, (d) qwen3 at 2 layers on ``(pod=2, data=2)`` with
+   ``with_error_feedback``'s int8 sync; (e) a one-device checkpoint
+   restored onto ``(data=2, model=2)`` and its next step against the
+   uninterrupted run's; (f) ``launch/train.py``'s loop with
+   ``--model-parallel 2`` over group A's DIS (20,000 rows) at 2 layers
+   (every rank's KG build launches the δ kernels). With ``train`` also
+   selected, 6c runs right after 6b's (a), before (d)'s CPU worker
+   starts: the ranks' host-staged collectives want the host's cores. Each leg logs per-rank peak memory,
+   the first and warm step seconds, the losses and the bytes each rank
+   hands to collectives per step. A failing rank fails the group.
 7. A ``{"kernels": [...]}`` JSON line for all six kernels (``bound_by``
    says bytes or operations; ``bound_unit`` names the unit that sets the
    bound: bytes, bf16 products, fp32 elementwise or exp; with phase 6b,
    ``train_launches``: the δ kernels' launches in the training driver's
-   run, the float kernels' per train step), then as the last line
+   run, the float kernels' per train step; with 6c,
+   ``train_mesh_launches``: rank 0's in the sharded driver's run), then as
+   the last line
    ``{"ok": true, "device": {...}}``.
 
 ``--phase NAME`` (repeatable) runs only the named phase groups, in a
 fresh process: ``main`` (2), ``paper`` (2b), ``query`` (2c), ``verify``
 (2d), ``mesh`` (2e and 2e′; it runs ``main`` and ``query`` first, whose
 results it checks against), ``kg-serve`` (2f), ``store`` (2g),
-``kernels`` (3; it runs ``main`` first, for the δ shapes), ``lm`` (4–6)
-and ``train`` (6b). The kernels line then lists the kernels whose timing
+``kernels`` (3; it runs ``main`` first, for the δ shapes), ``lm`` (4–6),
+``train`` (6b) and ``train-mesh`` (6c). The kernels line then lists the kernels whose timing
 phases ran. With no arguments every phase runs, in the order above.
 """
 from __future__ import annotations
@@ -371,12 +390,15 @@ BF16_FLOPS_PER_S = 989e12
 #: before its first run on the card
 TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_SHAPE, TRAIN_STEPS, TRAIN_LR = (2, 2048), 5, 1e-3
+#: (b) and (c) cut for the script's time when 6c came (PR 28): (b) from
+#: 20 steps to 12, (c) from 15 steps with a checkpoint every 5 to 10 with
+#: one every 4 (still 2 failures and 2 restores)
 TRAIN_DRIVER_ARGV = ["--arch", TRAIN_ARCH, "--rows", str(GROUP_A_ROWS),
                      "--redundancy", "0.75", "--batch", "8", "--seq", "128",
-                     "--steps", "20"]
+                     "--steps", "12"]
 TRAIN_CKPT_LAYERS = 2
-TRAIN_CKPT_ARGV = ("--steps", "15", "--ckpt-every", "5", "--fail-at", "7",
-                   "--fail-at", "13")
+TRAIN_CKPT_ARGV = ("--steps", "10", "--ckpt-every", "4", "--fail-at", "5",
+                   "--fail-at", "9")
 #: (d)'s cases, (label, arch, options): each arch's own step (its
 #: optimizer, remat "full", one microbatch), then qwen3 with two
 #: microbatches accumulated in float32, remat "dots" and a grad_compress
@@ -396,6 +418,61 @@ TRAIN_CPU_CASES = (
     ("qwen3-1.7b adafactor", "qwen3-1.7b", {"optimizer": "adafactor"}),
 )
 TRAIN_REFUSED = ("rwkv6-7b", "zamba2-2.7b")
+#: 6c (``train-mesh``): sharded training on TRAIN_MESH_RANKS ranks sharing
+#: the card over gloo. Legs (a)–(d): (arch, layers (None: full depth),
+#: mesh shape, axes, options), TRAIN_MESH_STEPS steps each at
+#: TRAIN_MESH_SHAPE (global batch, T; (d) a global batch of 4, one row a
+#: rank), bf16 weights, AdamW at TRAIN_LR, remat "full", the configs' own
+#: rules (``auto_rules``: gemma3's ``fsdp``, olmoe's ``moe_impl="local"``;
+#: olmoe with capacity for every pair, so the one-rank block, whose
+#: capacity counts the whole batch, drops none either). Ranks that share
+#: a card share its memory: qwen3 at full depth, TP-halved and replicated
+#: over data, is 0.86 B parameters a rank, 16 B each (bf16 weight and
+#: gradient, AdamW's float32 moments and master) and 2 B more for the new
+#: weights beside the old, plus the loss's float32 logits: 16.7 GiB
+#: allocated a rank when AdamW's temporaries ran the card out of memory
+#: (4 ranks and 5 contexts on 79 GiB); at 20 layers it fit (14.3 GiB a
+#: rank) but took 33 s of a slow host's run, which then passed the
+#: script's 1200 s (1214.7 s): (a) is cut to 8 of 28 layers. gemma3 runs
+#: on float32 weights, as phase
+#: 6's card-against-CPU runs it (LM_REDUCED_F32): its random init is
+#: chaotic in bf16 (grad norm 472), where the first run of this leg put
+#: the sharded and one-rank first losses 9.6e-3 apart.
+TRAIN_MESH_RANKS, TRAIN_MESH_TIMEOUT = 4, 600
+TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (2, 1024), 2
+TRAIN_MESH_LEGS = {
+    "a": ("qwen3-1.7b", 8, (2, 2), ("data", "model"), {}),
+    "b": ("gemma3-4b", 6, (2, 2), ("data", "model"), {"float32": True}),
+    "c": ("olmoe-1b-7b", 2, (2, 2), ("data", "model"), {"no_drops": True}),
+    "d": ("qwen3-1.7b", 2, (2, 2), ("pod", "data"), {"ef": True,
+                                                       "batch": 4}),
+}
+#: (e): the one-device checkpoint restored onto (data=2, model=2): qwen3
+#: cut to 2 of 28 layers (the full depth's 24 GiB checkpoint, read whole
+#: by each of 4 ranks, would cost minutes the group does not have)
+TRAIN_MESH_ELASTIC_LAYERS = 2
+#: (f): the driver's loop (``launch/train.py::train``) on the 4 ranks over
+#: group A's DIS at 20,000 rows, 4 steps, at phase 6b (c)'s 2 of 28
+#: layers (at full depth it ran the card out of memory too; at 20 layers,
+#: 8 steps and 200,000 rows, whose KG every rank builds, it took 82 s)
+TRAIN_MESH_DRIVER_ARGV = ["--arch", TRAIN_ARCH, "--rows", "20000",
+                          "--redundancy", "0.75", "--batch", "8", "--seq",
+                          "128", "--steps", "4", "--model-parallel", "2"]
+#: each leg against its one-rank run on the card, set before the first
+#: run on the card: bf16 weights (a tensor-parallel product sums bf16
+#: partials, the one-rank product rounds once), so PR 27's bf16
+#: card-against-CPU tolerances: the first step's loss within 2e-3 and
+#: grad norm within 2%, each randomly drawn leaf's L2 norm after it
+#: within 2e-3 relative (0.04% on the CPU); later steps only finite and
+#: equal on every rank (training from a random init drifts apart step by
+#: step: gemma3's is chaotic, 35% apart in the third step's grad norm at
+#: reduced size on the CPU, and the error-feedback leg's int8 steps
+#: leave the exact trajectory by design: 0.26% in the leaf norms after
+#: its third step on the card, where a first run compared those); the
+#: error-feedback leg's synced gradients carry the int8 quantization
+#: error: its first grad norm within 10%
+TRAIN_MESH_TOL = {"gspmd": {"loss": 2e-3, "gnorm": 0.02, "norms": 2e-3},
+                  "ef": {"loss": 2e-3, "gnorm": 0.10, "norms": 2e-3}}
 TRAIN_CPU_TOL = {"float32": {"loss": 1e-4, "gnorm": 1e-3, "moments": 5e-3,
                              "moved_share": 0.005},
                  "bfloat16": {"loss": 2e-3, "gnorm": 0.02, "moments": 0.15,
@@ -429,7 +506,7 @@ INT_KERNELS = ("rowhash", "hash_neighbor_flags", "radix_partition")
 #: the phase groups ``--phase`` selects, in the order they run, and the
 #: groups each needs run first
 PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve", "store",
-          "kernels", "lm", "train")
+          "kernels", "lm", "train", "train-mesh")
 PHASE_NEEDS = {"mesh": ("main", "query"), "kernels": ("main",)}
 #: the groups that need the KG workloads
 KG_PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve",
@@ -3537,6 +3614,422 @@ def train_cpu_phase(torch, dev, worker):
 
 
 # ---------------------------------------------------------------------------
+# 6c. sharded training: 4 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+def train_mesh_config(leg: str):
+    """A train-mesh leg's config: full width, its depth, its options."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, layers, _shape, _axes, opts = TRAIN_MESH_LEGS[leg]
+    cfg = dataclasses.replace(get_config(arch), remat="full")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if opts.get("no_drops"):
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    return cfg
+
+
+def _leaf_norms(torch, params, specs) -> dict:
+    """Each randomly drawn parameter leaf's float32 L2 norm (a DTensor's
+    over all its shards: one all-reduce each); the norms' scales, drawn
+    as zeros or ones, hold only the steps' ±lr moves, whose signs
+    rounding may flip where a gradient is near zero."""
+    from repro_torch.train.optimizer import tree_leaves
+    out = {}
+    for path, x in tree_leaves(params):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        if spec.init not in ("normal", "scaled"):
+            continue
+        n = torch.linalg.vector_norm(x.float())
+        out["/".join(path)] = float(n.full_tensor() if hasattr(
+            n, "full_tensor") else n)
+    return out
+
+
+def _leg_inputs(torch, cfg, dev, leg: str):
+    """(specs, generator, (batch, seq)) of a leg: one seeded generator on
+    the card draws the weights, then the batch, so the one-rank and the
+    sharded runs draw the same numbers."""
+    from repro_torch.models import get_model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    specs = get_model(cfg.family).param_specs(cfg)
+    opts = TRAIN_MESH_LEGS[leg][4]
+    return specs, gen, (opts.get("batch", TRAIN_MESH_SHAPE[0]),
+                        TRAIN_MESH_SHAPE[1])
+
+
+def _leg_dtype(leg: str, params):
+    """The leg's weights in float32 where it asks for them."""
+    from repro_torch.train.optimizer import tree_map
+    if not TRAIN_MESH_LEGS[leg][4].get("float32"):
+        return params
+    return tree_map(lambda p: p.float(), params)
+
+
+def train_mesh_one_rank(torch, dev, leg: str) -> dict:
+    """A leg's TRAIN_MESH_STEPS steps on one device (this process): the
+    losses, grad norms and final per-leaf norms its sharded run is held
+    to."""
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    cfg = train_mesh_config(leg)
+    specs, gen, (b, seq) = _leg_inputs(torch, cfg, dev, leg)
+    params = _leg_dtype(leg, init_params(specs, gen, dev))
+    batch = lm_batch(torch, cfg, b, seq, gen, dev)
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    state = opt.init(params)
+    step = make_train_step(cfg, optimizer=opt)
+    losses, norms, secs = [], [], []
+    for i in range(TRAIN_MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch, i)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+        if i == 0:
+            first = _leaf_norms(torch, params, specs)
+    out = {"losses": losses, "grad_norms": norms, "secs": secs,
+           "leaf_norms": first}
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_elastic_source(torch, dev, root: str) -> dict:
+    """(e)'s one-device run: a step, a checkpoint of (params, AdamW state)
+    into ``root``, then the uninterrupted run's next step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import save_checkpoint
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import get_model
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="full",
+                              n_layers=TRAIN_MESH_ELASTIC_LAYERS)
+    b, seq = TRAIN_MESH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    specs = get_model(cfg.family).param_specs(cfg)
+    params = init_params(specs, gen, dev)
+    batches = [lm_batch(torch, cfg, b, seq, gen, dev) for _ in range(2)]
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    state = opt.init(params)
+    step = make_train_step(cfg, optimizer=opt)
+    params, state, _ = step(params, state, batches[0], 0)
+    t0 = time.perf_counter()
+    save_checkpoint(root, 0, (params, state), extra={"step": 0})
+    save_s = time.perf_counter() - t0
+    params, state, m = step(params, state, batches[1], 1)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "leaf_norms": _leaf_norms(torch, params, specs), "save_s": save_s,
+           "bytes": sum(os.path.getsize(os.path.join(d, f))
+                        for d, _, fs in os.walk(root) for f in fs)}
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+class _Traffic:
+    """Bytes this rank hands to collectives (each call's input payload),
+    counted at ``launch/mesh.py``'s helpers, which every collective of a
+    CUDA mesh on gloo goes through: the port's own calls and DTensor's
+    (its functional collectives' staged kernels)."""
+
+    def __init__(self):
+        import repro_torch.launch.mesh as M
+        self.bytes = 0
+        self._undo = []
+        for name in ("all_reduce", "all_gather_into", "reduce_scatter",
+                     "all_to_all"):
+            orig = getattr(M, name)
+            setattr(M, name, self._counted(orig, 0 if name == "all_reduce"
+                                           else 1))
+            self._undo.append((M, name, orig))
+
+    def _counted(self, orig, arg):
+        def counted(*args, **kwargs):
+            x = args[arg]
+            self.bytes += x.numel() * x.element_size()
+            return orig(*args, **kwargs)
+        return counted
+
+    def close(self):
+        for mod, name, orig in self._undo:
+            setattr(mod, name, orig)
+
+
+def _mesh_leg(torch, dev, leg: str) -> dict:
+    """One leg in this rank: its mesh, rules and context, the seeded
+    weights placed by the rules, TRAIN_MESH_STEPS steps on this rank's
+    shard of the seeded batch."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import auto_rules
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import (local_batch, make_train_step,
+                                              with_error_feedback)
+    _arch, _layers, shape, axes, opts = TRAIN_MESH_LEGS[leg]
+    cfg = train_mesh_config(leg)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_mesh(shape, axes, device=dev)
+    specs, gen, (b, seq) = _leg_inputs(torch, cfg, dev, leg)
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    if opts.get("ef"):
+        # the pod-decoupled step: replicated weights, the hook owns the
+        # whole sync; each rank its share of the batch's rows
+        params = _leg_dtype(leg, init_params(specs, gen, dev))
+        batch = {k: v.chunk(mesh.size, dim=0)[mesh.rank] for k, v in
+                 lm_batch(torch, cfg, b, seq, gen, dev).items()}
+        opt, hook = with_error_feedback(opt, mesh.shape["data"], mesh=mesh)
+        step = make_train_step(cfg, optimizer=opt, grad_compress=hook)
+    else:
+        ctx = ShardCtx(mesh, auto_rules(cfg, mesh))
+        params = _leg_dtype(leg, init_params(specs, gen, dev, mesh=mesh,
+                                             rules=ctx.rules))
+        batch = local_batch(ctx, lm_batch(torch, cfg, b, seq, gen, dev))
+        step = make_train_step(cfg, optimizer=opt, ctx=ctx)
+    state = opt.init(params)
+    init_s = time.perf_counter() - t0
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    traffic = _Traffic()
+    losses, norms, secs, per_step = [], [], [], []
+    reset_launch_counts()
+    try:
+        for i in range(TRAIN_MESH_STEPS):
+            torch.cuda.synchronize()
+            dist.barrier()
+            before = traffic.bytes
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, i)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            per_step.append(traffic.bytes - before)
+            if i == 0:
+                first = _leaf_norms(torch, params, specs)
+    finally:
+        traffic.close()
+    out = {"losses": losses, "grad_norms": norms, "secs": secs,
+           "init_s": init_s, "traffic": per_step,
+           "launches": launch_counts(),
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "leaf_norms": first}
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_elastic(torch, dev, root: str) -> dict:
+    """(e) in this rank: the one-device checkpoint restored onto the
+    (data, model) mesh, then the next step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.checkpoint import restore_checkpoint
+    from repro_torch.distributed.sharding import init_params, param_shardings
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import auto_rules, get_model
+    from repro_torch.models.layers import ShardCtx
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import local_batch, make_train_step
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), remat="full",
+                              n_layers=TRAIN_MESH_ELASTIC_LAYERS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    mesh = make_local_mesh(model=2, device=dev)
+    ctx = ShardCtx(mesh, auto_rules(cfg, mesh))
+    b, seq = TRAIN_MESH_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    specs = get_model(cfg.family).param_specs(cfg)
+    params = init_params(specs, gen, dev, mesh=mesh, rules=ctx.rules)
+    batches = [lm_batch(torch, cfg, b, seq, gen, dev) for _ in range(2)]
+    opt = make_optimizer(cfg.optimizer, lr=TRAIN_LR)
+    state = opt.init(params)
+    shard = param_shardings(specs, mesh, ctx.rules)
+    t0 = time.perf_counter()
+    (params, state), extra = restore_checkpoint(
+        root, (params, state), device=dev,
+        shardings=(shard, {"mu": shard, "nu": shard, "master": shard}))
+    restore_s = time.perf_counter() - t0
+    step = make_train_step(cfg, optimizer=opt, ctx=ctx)
+    t0 = time.perf_counter()
+    params, state, m = step(params, state, local_batch(ctx, batches[1]),
+                            int(extra["step"]) + 1)
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    out = {"loss": loss, "grad_norm": gnorm, "restore_s": restore_s,
+           "step_s": time.perf_counter() - t0,
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "leaf_norms": _leaf_norms(torch, params, specs)}
+    del params, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_driver(torch, dev) -> dict:
+    """(f) ``launch/train.py``'s loop with ``--model-parallel 2`` in this
+    rank, at TRAIN_CKPT_LAYERS layers, between a reset and a read of the
+    launch counts; rank 0's output."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as driver
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              n_layers=TRAIN_CKPT_LAYERS)
+    args = driver.parse_args(TRAIN_MESH_DRIVER_ARGV + ["--device",
+                                                       str(dev)])
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run, lines = _driver_output(lambda: driver.train(cfg, args))
+    out = {"losses": run.losses, "lines": lines,
+           "secs": time.perf_counter() - t0, "launches": launch_counts()}
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(legs, root):
+    """Every train-mesh leg in one of the 4 ranks (spawned by
+    :func:`train_mesh_phase`), in order, each leg's memory freed before
+    the next."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"rank": dist.get_rank()}
+    for leg, run in [(leg, lambda leg=leg: _mesh_leg(torch, dev, leg))
+                     for leg in legs] + [
+            ("e", lambda: _mesh_elastic(torch, dev, root)),
+            ("f", lambda: _mesh_driver(torch, dev))]:
+        t0 = time.perf_counter()
+        out[leg] = run()
+        out[leg]["leg_s"] = time.perf_counter() - t0
+        if out["rank"] == 0:       # what a later leg's failure would lose
+            log(f"train-mesh ({leg}) rank 0 done in {out[leg]['leg_s']:.1f}"
+                f" s: {json.dumps({k: v for k, v in out[leg].items() if k not in ('leaf_norms', 'lines')})}")
+    return out
+
+
+def _close_steps(got, want, tol) -> bool:
+    """The first step's loss and grad norm within ``tol``; every step's
+    finite (bf16 training from a random init drifts apart step by step:
+    gemma3's is chaotic)."""
+    import math
+    return abs(got["losses"][0] - want["losses"][0]) <= tol["loss"] and \
+        abs(got["grad_norms"][0] - want["grad_norms"][0]) <= \
+        tol["gnorm"] * want["grad_norms"][0] and \
+        all(math.isfinite(x) for x in got["losses"] + got["grad_norms"])
+
+
+def _norms_apart(got: dict, want: dict) -> float:
+    return max(abs(got[k] - want[k]) / max(want[k], 1e-30) for k in want)
+
+
+def train_mesh_phase(torch, dev, card):
+    """6c. Sharded training on 4 ranks sharing the card over gloo: legs
+    (a)–(d) (TRAIN_MESH_LEGS), (e) elastic restore, (f) the driver with
+    ``--model-parallel 2``; each against its one-rank run on the card
+    (this process, before the ranks start) within TRAIN_MESH_TOL. Returns
+    the δ kernels' launches per rank in (f)'s driver run."""
+    import tempfile
+    from repro_torch.launch.mesh import launch_ranks
+    legs = tuple(TRAIN_MESH_LEGS)
+    t0 = time.perf_counter()
+    one_rank = {leg: train_mesh_one_rank(torch, dev, leg) for leg in legs}
+    root = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        source = train_mesh_elastic_source(torch, dev, root)
+        log(f"train-mesh one-rank references: {time.perf_counter() - t0:.1f}"
+            f" s; (e)'s checkpoint {source['bytes'] / 2**30:.2f} GiB, saved "
+            f"in {source['save_s']:.2f} s")
+        t0 = time.perf_counter()
+        ranks = launch_ranks(train_mesh_rank, TRAIN_MESH_RANKS,
+                             device=dev.type, timeout=TRAIN_MESH_TIMEOUT,
+                             args=(legs, root))
+        log(f"train-mesh ranks: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for leg in legs:
+        arch, layers, shape, axes, opts = TRAIN_MESH_LEGS[leg]
+        cfg = train_mesh_config(leg)
+        want = one_rank[leg]
+        tol = TRAIN_MESH_TOL["ef" if opts.get("ef") else "gspmd"]
+        for r in ranks:
+            got = r[leg]
+            if opts.get("ef"):
+                # each rank's loss is its own quarter's; their mean is the
+                # whole batch's
+                got = dict(got, losses=[
+                    statistics.fmean(x[leg]["losses"][i] for x in ranks)
+                    for i in range(TRAIN_MESH_STEPS)])
+            apart = _norms_apart(got["leaf_norms"], want["leaf_norms"])
+            log(f"train-mesh ({leg}) rank {r['rank']} {arch}, "
+                f"{cfg.n_layers} layers, mesh {dict(zip(axes, shape))}"
+                f"{', ' + json.dumps(opts) if opts else ''}: init "
+                f"{got['init_s']:.2f} s, steps "
+                f"{', '.join(f'{x:.3f}' for x in got['secs'])} s (first, "
+                f"then warm), peak {got['peak'] / 2**30:.2f} GiB, "
+                f"collective bytes per step "
+                f"{json.dumps(got['traffic'])}; losses "
+                f"{json.dumps([round(x, 6) for x in got['losses']])} vs "
+                f"one-rank {json.dumps([round(x, 6) for x in want['losses']])}"
+                f", grad norms {json.dumps([round(x, 5) for x in got['grad_norms']])}"
+                f" vs {json.dumps([round(x, 5) for x in want['grad_norms']])}"
+                f", leaf norms after the first step apart {apart:.3g} "
+                f"(relative)  ({card})")
+            check(_close_steps(got, want, tol) and apart <= tol["norms"],
+                  f"train-mesh ({leg}) rank {r['rank']}: the sharded run "
+                  f"differs from the one-rank run beyond {tol}")
+        check(all(x[leg]["losses"] == ranks[0][leg]["losses"]
+                  for x in ranks) or opts.get("ef"),
+              f"train-mesh ({leg}): the ranks disagree on the loss")
+        check_counts(ranks[0][leg]["launches"], {},
+                     f"train-mesh ({leg}) steps")
+        log(f"train-mesh ({leg}) one-rank: steps "
+            f"{', '.join(f'{x:.3f}' for x in want['secs'])} s")
+    tol = TRAIN_MESH_TOL["gspmd"]
+    for r in ranks:
+        got = r["e"]
+        apart = _norms_apart(got["leaf_norms"], source["leaf_norms"])
+        log(f"train-mesh (e) rank {r['rank']}: {TRAIN_MESH_ELASTIC_LAYERS} "
+            f"layers of {TRAIN_ARCH} restored from the one-device "
+            f"checkpoint onto (data=2, model=2) in {got['restore_s']:.2f} s, "
+            f"next step {got['step_s']:.2f} s, peak "
+            f"{got['peak'] / 2**30:.2f} GiB: loss {got['loss']:.6f} vs the "
+            f"uninterrupted {source['loss']:.6f}, grad norm "
+            f"{got['grad_norm']:.5f} vs {source['grad_norm']:.5f}, leaf "
+            f"norms apart {apart:.3g}  ({card})")
+        check(abs(got["loss"] - source["loss"]) <= tol["loss"]
+              and abs(got["grad_norm"] - source["grad_norm"])
+              <= tol["gnorm"] * source["grad_norm"]
+              and apart <= tol["norms"],
+              f"train-mesh (e) rank {r['rank']}: the restored step differs "
+              f"from the uninterrupted one beyond {tol}")
+    f = [r["f"] for r in ranks]
+    for line in f[0]["lines"]:
+        log(f"train-mesh (f) driver: {line}")
+    log(f"train-mesh (f) {' '.join(TRAIN_MESH_DRIVER_ARGV)}: "
+        f"{f[0]['secs']:.1f} s; δ launches per rank "
+        f"{json.dumps([x['launches'] for x in f])}  ({card})")
+    check(f[0]["losses"][-1] < f[0]["losses"][0]
+          and all(x["losses"] == f[0]["losses"] for x in f)
+          and not any(x["lines"] for x in f[1:]),
+          f"train-mesh (f): losses {[x['losses'] for x in f]}, rank 0 "
+          f"printed {f[0]['lines'][-3:]}")
+    check(all(all(x["launches"][k] > 0 for k in INT_KERNELS) for x in f),
+          f"train-mesh (f): launches {[x['launches'] for x in f]}: every "
+          "rank's KG build launches the three δ kernels")
+    return f[0]["launches"]
+
+
+# ---------------------------------------------------------------------------
 
 def selected_phases(argv):
     """The phase groups ``--phase NAME ...`` selects with the groups they
@@ -3582,6 +4075,7 @@ def main() -> int:
         return 2
     launches, errs, bad, times = {}, {}, {}, {}
     mesh_launches = serve_launches = train_launches = None
+    train_mesh_launches = None
     t_phase = [time.perf_counter()]
 
     def done(name: str) -> None:
@@ -3670,6 +4164,15 @@ def main() -> int:
                 # steps run in a worker beside (b) and (c)
                 per_step = train_step_phase(torch, dev, card)
                 done("train (a) full-width step")
+            if "train-mesh" in phases:
+                # before (d)'s CPU worker starts: the ranks' host-staged
+                # collectives want the host's cores
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+                torch.cuda.empty_cache()
+                train_mesh_launches = train_mesh_phase(torch, dev, card)
+                done("train-mesh")
+            if "train" in phases:
                 worker = start_train_cpu_worker(torch, dev)
                 stack.callback(shutil.rmtree, worker[2], ignore_errors=True)
                 stack.callback(worker[0].shutdown, wait=True,
@@ -3702,6 +4205,8 @@ def main() -> int:
                if name in INT_KERNELS and serve_launches else {}),
             **({"train_launches": train_launches[name]}
                if train_launches else {}),
+            **({"train_mesh_launches": train_mesh_launches[name]}
+               if train_mesh_launches else {}),
             "mismatches": bad[name], "max_abs_err": errs[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

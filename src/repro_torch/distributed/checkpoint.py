@@ -23,8 +23,13 @@ Async mode hands the host copy to a writer thread: the train loop goes
 on while the previous step flushes. The copy is taken synchronously, so
 the optimizer's in-place updates cannot race the writer.
 
-There is no mesh resharding yet: ``restore`` puts every leaf whole on
-one device.
+On a mesh of ranks the leaves are DTensors. A save gathers each leaf
+(``full_tensor()``, a collective every rank joins) and one rank writes
+the file (the manager's ``group``: its rank 0), in the same format, so
+a checkpoint does not record the layout it was saved from. ``restore``
+with ``shardings`` (or onto a ``like`` whose leaves are DTensors) has
+every rank read each leaf and keep its shard: elastic restore, onto any
+layout, from a checkpoint saved on one device or on another mesh.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.distributed.sharding import is_dtensor, shard_to
 
 Tree = Any
 
@@ -90,6 +96,8 @@ def _dtype_name(dtype) -> str:
 def _to_numpy(leaf) -> np.ndarray:
     if not isinstance(leaf, torch.Tensor):
         return np.asarray(leaf)
+    if is_dtensor(leaf):               # every rank gathers it
+        leaf = leaf.full_tensor()
     t = leaf.detach().to("cpu", copy=True)    # never the live storage
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(_BF16_RECORD)
@@ -184,14 +192,31 @@ def all_steps(root: str) -> List[int]:
     return sorted(out)
 
 
+def _place(t: torch.Tensor, like, sharding):
+    """A restored whole leaf laid out as asked: ``sharding``'s layout (a
+    ``sharding.Sharding``), else ``like``'s when it is a DTensor, else
+    whole."""
+    if sharding is not None:
+        return sharding.shard(t)
+    if is_dtensor(like):
+        return shard_to(t, like.device_mesh, like.placements)
+    return t
+
+
 def restore_checkpoint(root: str, like: Tree, step: Optional[int] = None,
-                       device: DeviceLike = None
+                       device: DeviceLike = None,
+                       shardings: Optional[Tree] = None
                        ) -> Tuple[Tree, Dict[str, Any]]:
     """Restore into the structure of ``like`` (a tree of tensors, or of
     anything with ``shape`` and ``dtype``), every leaf in ``like``'s
-    dtype on ``device`` (the card unless ``device="cpu"``). Returns
-    (tree, manifest['extra'])."""
+    dtype on ``device`` (the card unless ``device="cpu"``). ``shardings``
+    (``like``'s structure, ``sharding.Sharding`` leaves) reshards each
+    leaf onto a mesh: every rank reads it whole and keeps its shard; a
+    ``like`` of DTensors reshards onto its own layout. Returns (tree,
+    manifest['extra'])."""
     dev = resolve_device(device)
+    layouts = (None if shardings is None else
+               dict(_flatten_with_paths(shardings)))
     step = latest_step(root) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {root}")
@@ -207,7 +232,8 @@ def restore_checkpoint(root: str, like: Tree, step: Optional[int] = None,
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"leaf {key}: checkpoint shape {arr.shape} "
                                  f"!= expected {tuple(ref.shape)}")
-            leaves[key] = _from_numpy(arr, ref, dev)
+            leaves[key] = _place(_from_numpy(arr, ref, dev), ref,
+                                 None if layouts is None else layouts[key])
     return _unflatten_like(like, leaves), manifest.get("extra", {})
 
 
@@ -222,13 +248,22 @@ class CheckpointManager:
     ``stats`` counts what the manager did: saves, bytes of arrays
     written, seconds blocked in ``save`` (the host copy), seconds the
     writes took (on the writer thread in async mode), restores and their
-    seconds."""
+    seconds.
+
+    With a ``group`` (a mesh's process group) every rank of it makes the
+    same calls: each ``save`` gathers the leaves in every rank and the
+    group's rank 0 writes; ``wait`` ends with a barrier, so no rank reads
+    the directory before the writer has published."""
 
     root: str
     keep_n: int = 3
     async_write: bool = True
+    group: Any = None
 
     def __post_init__(self):
+        import torch.distributed as dist
+        self._writes = (self.group is None
+                        or dist.get_rank(self.group) == 0)
         os.makedirs(self.root, exist_ok=True)
         self._q: "queue.Queue" = queue.Queue()
         self._err: List[BaseException] = []
@@ -280,6 +315,8 @@ class CheckpointManager:
         host = _host_copy(tree)          # synchronous: in-place-update safe
         self.stats["saves"] += 1
         self.stats["save_s"] += time.perf_counter() - t0
+        if not self._writes:
+            return
         if self.async_write:
             self._q.put((step, host, manifest))
         else:
@@ -289,6 +326,9 @@ class CheckpointManager:
         if self.async_write:
             self._q.join()
         self._raise_pending()
+        if self.group is not None:
+            import torch.distributed as dist
+            dist.barrier(group=self.group)
 
     def close(self) -> None:
         if self._thread is not None:
@@ -311,10 +351,11 @@ class CheckpointManager:
         return all_steps(self.root)
 
     def restore(self, like: Tree, step: Optional[int] = None,
-                device: DeviceLike = None):
+                device: DeviceLike = None,
+                shardings: Optional[Tree] = None):
         self.wait()
         t0 = time.perf_counter()
-        out = restore_checkpoint(self.root, like, step, device)
+        out = restore_checkpoint(self.root, like, step, device, shardings)
         self.stats["restores"] += 1
         self.stats["restore_s"] += time.perf_counter() - t0
         return out

@@ -16,6 +16,24 @@ gloo stages CUDA tensors through the host) and on the CPU.
 process group; a one-rank mesh outside any rank runs in the calling
 process, on a one-rank gloo group created once per process and reused.
 Nothing here touches ``torch.distributed`` at import time.
+
+A mesh of several axes numbers its ranks row-major over the axes (as
+``np.arange(n).reshape(shape)``) and has one process group per axis and
+rank: every rank creates every subgroup, in the same order
+(``new_group`` is collective). An axis that spans every rank uses the
+mesh's own group. :attr:`Mesh.device_mesh` is the DTensor
+``DeviceMesh`` built from those groups and the mesh's backend (not
+``init_device_mesh``, which would pick NCCL for CUDA ranks that share a
+card).
+
+gloo segfaults on collectives of CUDA tensors on the H100 (PyTorch
+2.11): on every ``reduce_scatter``, and on DTensor's all-gather over an
+axis subgroup. A CUDA mesh on gloo therefore stages its collectives
+through pinned host memory, where gloo runs them on the CPU: the port's
+own calls go through :func:`all_reduce`, :func:`all_gather_into`,
+:func:`reduce_scatter` and :func:`all_to_all`, and the functional
+collectives that DTensor calls get CUDA kernels that do the same
+(:func:`_stage_collectives`).
 """
 from __future__ import annotations
 
@@ -28,6 +46,7 @@ import tempfile
 import threading
 import time
 import traceback
+import warnings
 from datetime import timedelta
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -43,8 +62,9 @@ class Mesh:
     """One rank's view of a mesh of ranks.
 
     ``shape`` maps each axis name to its size, so ``mesh.shape[axis]``
-    and ``tuple(mesh.shape)`` read as on the reference's mesh. Exchanges
-    run over an axis that spans every rank (:meth:`group_for`)."""
+    and ``tuple(mesh.shape)`` read as on the reference's mesh.
+    ``axis_groups`` holds this rank's process group along each axis
+    (:meth:`group_for`)."""
 
     shape: Dict[str, int]
     axis_names: Tuple[str, ...]
@@ -52,19 +72,40 @@ class Mesh:
     device: torch.device
     backend: str
     group: object
+    axis_groups: Dict[str, object] = dataclasses.field(default_factory=dict)
 
     @property
     def size(self) -> int:
         return math.prod(self.shape.values())
 
+    @property
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along each axis (row-major rank order)."""
+        idx = np.unravel_index(self.rank, tuple(self.shape.values()))
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
     def group_for(self, axis: str):
-        """The process group of ``axis``: the mesh's group, when the axis
-        spans every rank (the other axes have size 1)."""
-        if self.shape[axis] != self.size:
-            raise ValueError(f"axis {axis!r} of mesh {self.shape} does not "
-                             "span every rank; the port exchanges only "
-                             "over such an axis")
-        return self.group
+        """The process group of ``axis`` that holds this rank: the mesh's
+        group when the axis spans every rank."""
+        if self.shape[axis] == self.size:
+            return self.group
+        return self.axis_groups[axis]
+
+    @property
+    def device_mesh(self):
+        """The DTensor ``DeviceMesh`` over this mesh's groups (built once
+        per mesh)."""
+        dm = getattr(self, "_device_mesh", None)
+        if dm is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            groups = [self.group_for(a) for a in self.axis_names]
+            grid = torch.arange(self.size).reshape(
+                tuple(self.shape.values()))
+            dm = DeviceMesh.from_group(
+                groups if len(groups) > 1 else groups[0], self.device.type,
+                mesh=grid, mesh_dim_names=self.axis_names)
+            self._device_mesh = dm
+        return dm
 
     def key(self) -> Tuple:
         """Identity of this mesh in cache keys: axes, this rank, the
@@ -133,18 +174,161 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     if world != n:
         raise ValueError(f"need {n} ranks, the process group has {world}")
     group = dist.group.WORLD
-    return Mesh(shape=dict(zip(axes, shape)), axis_names=axes,
-                rank=dist.get_rank(), device=dev,
-                backend=str(dist.get_backend(group)), group=group)
+    rank = dist.get_rank()
+    backend = str(dist.get_backend(group))
+    grid = np.arange(n).reshape(shape)
+    axis_groups: Dict[str, object] = {}
+    for i, axis in enumerate(axes):
+        if shape[i] == n:
+            continue                  # the mesh's own group
+        # every rank creates every group of the axis, in one order
+        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[i])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line], backend=backend)
+            if rank in line:
+                axis_groups[axis] = g
+    if dev.type == "cuda" and backend == "gloo":
+        _stage_collectives()
+    return Mesh(shape=dict(zip(axes, shape)), axis_names=axes, rank=rank,
+                device=dev, backend=backend, group=group,
+                axis_groups=axis_groups)
 
 
 def make_local_mesh(model: int = 1, data: Optional[int] = None,
                     device: DeviceLike = None) -> Mesh:
     """A ``(data, model)`` mesh over the ranks that exist (one, outside
-    :func:`launch_ranks`)."""
+    :func:`launch_ranks`). A rank count that ``model`` does not divide
+    fails, as the reference's mesh construction fails."""
     n = dist.get_world_size() if dist.is_initialized() else 1
     data = data if data is not None else max(1, n // model)
     return make_mesh((data, model), ("data", "model"), device=device)
+
+
+# ---------------------------------------------------------------------------
+# collectives of CUDA tensors on gloo, staged through the host
+# ---------------------------------------------------------------------------
+
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _pinned(x: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return h.copy_(x)
+
+
+def _host_op(op):
+    """gloo has no AVG: (the op it runs, whether to divide after)."""
+    if op == dist.ReduceOp.AVG:
+        return dist.ReduceOp.SUM, True
+    return op, False
+
+
+def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """``dist.all_reduce(x)`` in place; a CUDA tensor on a gloo group goes
+    through pinned host memory (see the module docstring)."""
+    if not _staged(x, group):
+        dist.all_reduce(x, op=op, group=group)
+        return
+    h = _pinned(x)
+    host_op, mean = _host_op(op)
+    dist.all_reduce(h, op=host_op, group=group)
+    if mean:
+        h /= dist.get_world_size(group)
+    x.copy_(h)
+
+
+def all_gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
+    """``dist.all_gather_into_tensor(out, x)``, staged as
+    :func:`all_reduce`."""
+    if not _staged(x, group):
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        return
+    h = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    dist.all_gather_into_tensor(h, _pinned(x), group=group)
+    out.copy_(h)
+
+
+def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group,
+                   op=dist.ReduceOp.SUM) -> None:
+    """``dist.reduce_scatter_tensor(out, inp)``, staged as
+    :func:`all_reduce`."""
+    if not _staged(inp, group):
+        dist.reduce_scatter_tensor(out, inp.contiguous(), op=op, group=group)
+        return
+    h = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host_op, mean = _host_op(op)
+    dist.reduce_scatter_tensor(h, _pinned(inp), op=host_op, group=group)
+    if mean:
+        h /= dist.get_world_size(group)
+    out.copy_(h)
+
+
+def all_to_all(out: torch.Tensor, inp: torch.Tensor, group,
+               out_splits=None, in_splits=None) -> None:
+    """``dist.all_to_all_single(out, inp)``, staged as :func:`all_reduce`."""
+    if not _staged(inp, group):
+        dist.all_to_all_single(out, inp.contiguous(), out_splits, in_splits,
+                               group=group)
+        return
+    h = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    dist.all_to_all_single(h, _pinned(inp), out_splits, in_splits,
+                           group=group)
+    out.copy_(h)
+
+
+#: the library that holds the staged CUDA kernels, once registered
+_STAGED: List[object] = []
+
+
+def _stage_collectives() -> None:
+    """Register (once per process) CUDA kernels of the functional
+    collectives DTensor calls (``_c10d_functional``'s all_reduce,
+    all_gather_into_tensor, reduce_scatter_tensor, all_to_all_single),
+    each run by the helpers above: through the host on a gloo group, by
+    the group's own collective otherwise. They complete before they
+    return, so DTensor's later wait has nothing to wait for."""
+    if _STAGED:
+        return
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    ops = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.AVG,
+           "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}
+
+    def k_all_reduce(inp, reduce_op, group_name):
+        out = inp.clone()
+        all_reduce(out, _resolve_process_group(group_name),
+                   ops[reduce_op.lower()])
+        return out
+
+    def k_all_gather(inp, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] * group_size,)
+                            + tuple(inp.shape[1:]))
+        all_gather_into(out, inp, _resolve_process_group(group_name))
+        return out
+
+    def k_reduce_scatter(inp, reduce_op, group_size, group_name):
+        out = inp.new_empty((inp.shape[0] // group_size,)
+                            + tuple(inp.shape[1:]))
+        reduce_scatter(out, inp, _resolve_process_group(group_name),
+                       ops[reduce_op.lower()])
+        return out
+
+    def k_all_to_all(inp, output_split_sizes, input_split_sizes,
+                     group_name):
+        out = inp.new_empty((sum(output_split_sizes),)
+                            + tuple(inp.shape[1:]))
+        all_to_all(out, inp, _resolve_process_group(group_name),
+                   list(output_split_sizes), list(input_split_sizes))
+        return out
+
+    lib = torch.library.Library("_c10d_functional", "IMPL")
+    with warnings.catch_warnings():    # they override the stock kernels
+        warnings.simplefilter("ignore")
+        lib.impl("all_reduce", k_all_reduce, "CUDA")
+        lib.impl("all_gather_into_tensor", k_all_gather, "CUDA")
+        lib.impl("reduce_scatter_tensor", k_reduce_scatter, "CUDA")
+        lib.impl("all_to_all_single", k_all_to_all, "CUDA")
+    _STAGED.append(lib)
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,25 @@ The full production story in one process (shrunk to CPU scale with
    knowledge graph: on the card its δs launch the rowhash,
    hash-neighbour-flag and radix-partition kernels.
 2. Linearize the KG into a token stream (:mod:`repro_torch.data.pipeline`).
-3. Train the selected architecture on one device, with atomic
-   checkpoints, injected failures + supervised restarts, and a straggler
-   monitor rebalancing the data pipeline.
+3. Train the selected architecture, with atomic checkpoints, injected
+   failures + supervised restarts, and a straggler monitor rebalancing
+   the data pipeline.
 
 The flags are the JAX package's (``repro.launch.train``), plus
 ``--device``: everything runs on the CUDA card unless ``--device cpu``.
 Weights are random, from a seeded ``torch.Generator`` on the device.
-Sharded training (``--model-parallel`` other than 1) is not ported yet
-and refused. It trains token-only families (it refuses vlm and encdec,
-as the reference does).
+It trains token-only families (it refuses vlm and encdec, as the
+reference does).
+
+Alone it trains on one device. Run as SPMD ranks (``launch_ranks``, or
+any initialized process group) it trains sharded, as the reference's
+pjit does: a ``(data, model)`` mesh of the ranks with ``model =
+--model-parallel`` (a rank count that it does not divide fails, as the
+reference's mesh construction fails; here with ``SystemExit``, as the
+driver's other refusals), ``auto_rules`` placing the
+parameters, each data rank taking its shard of the global batch. Every
+rank builds the same KG (no collective on the data path); rank 0 writes
+the checkpoints and prints.
 
 Usage (CPU smoke)::
 
@@ -34,6 +43,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_config, reduced_config
 from repro_torch.core.pipeline import mapsdi_create_kg
@@ -45,19 +55,21 @@ from repro_torch.distributed.fault import (FailureInjector, RestartPolicy,
                                            RestartReport, StragglerMonitor,
                                            run_with_restarts)
 from repro_torch.distributed.sharding import init_params
-from repro_torch.models import get_model
+from repro_torch.launch.mesh import make_local_mesh
+from repro_torch.models import auto_rules, get_model
+from repro_torch.models.layers import ShardCtx
 from repro_torch.train.optimizer import make_optimizer
-from repro_torch.train.train_step import make_train_step
+from repro_torch.train.train_step import local_batch, make_train_step
 
 
 def build_dataset(cfg, *, rows: int, redundancy: float, seed: int,
-                  device=None) -> np.ndarray:
+                  device=None, log=print) -> np.ndarray:
     """The MapSDI KG of a group-A DIS on ``device``, linearized."""
     dis = make_group_a_dis(rows, redundancy, seed=seed, device=device)
     kg, stats = mapsdi_create_kg(dis)
-    print(f"[mapsdi] raw={stats['raw_triples']} kg={stats['kg_triples']} "
-          f"rows {stats['source_rows_before']}->{stats['source_rows_after']}"
-          f" (rule1={stats['rule1']} rule3={stats['rule3']})")
+    log(f"[mapsdi] raw={stats['raw_triples']} kg={stats['kg_triples']} "
+        f"rows {stats['source_rows_before']}->{stats['source_rows_after']}"
+        f" (rule1={stats['rule1']} rule3={stats['rule3']})")
     return linearize_kg(kg, cfg.vocab_size, seed=seed)
 
 
@@ -86,14 +98,20 @@ def parse_args(argv=None) -> argparse.Namespace:
 @dataclasses.dataclass
 class TrainRun:
     """What :func:`train` leaves: the losses of the attempt that finished,
-    the restart report, the final state and the checkpoint manager's
-    ``stats`` (None without ``--ckpt``)."""
+    the restart report, the final state, the checkpoint manager's
+    ``stats`` (None without ``--ckpt``) and the mesh (None on one
+    device)."""
 
     losses: List[float]
     report: RestartReport
     params: dict
     opt_state: dict
     ckpt_stats: Optional[dict]
+    mesh: Optional[object] = None
+
+
+def _quiet(*_args, **_kwargs) -> None:
+    pass
 
 
 def train(cfg, args) -> TrainRun:
@@ -102,31 +120,41 @@ def train(cfg, args) -> TrainRun:
     if cfg.family in ("vlm", "encdec"):
         raise SystemExit("train driver covers token-only families; "
                          "see tests/test_archs.py for vlm/encdec steps")
-    if args.model_parallel != 1:
-        raise SystemExit("--model-parallel: sharded training is not "
-                         "ported yet; the port trains on one device")
     dev = resolve_device(args.device)
     model = get_model(cfg.family)
+    mesh = ctx = None
+    if args.model_parallel != 1 or (dist.is_initialized()
+                                    and dist.get_world_size() > 1):
+        try:
+            mesh = make_local_mesh(model=args.model_parallel, device=dev)
+        except ValueError as e:        # the ranks do not make the mesh
+            raise SystemExit(f"--model-parallel {args.model_parallel}: "
+                             f"{e}") from e
+        ctx = ShardCtx(mesh, auto_rules(cfg, mesh))
+    log = print if mesh is None or mesh.rank == 0 else _quiet
 
     # --- data: MapSDI KG -> token stream ------------------------------------
     stream = build_dataset(cfg, rows=args.rows, redundancy=args.redundancy,
-                           seed=args.seed, device=dev)
+                           seed=args.seed, device=dev, log=log)
     pipe = KGTokenPipeline(stream, args.seq, args.batch)
-    n_hosts = 1
+    n_hosts = 1 if mesh is None else mesh.shape["data"]
     monitor = StragglerMonitor(n_hosts)
 
     # --- model / optimizer ---------------------------------------------------
     opt = make_optimizer(cfg.optimizer, lr=args.lr)
     specs = model.param_specs(cfg)
-    train_step = make_train_step(cfg, optimizer=opt)
+    train_step = make_train_step(cfg, optimizer=opt, ctx=ctx)
 
-    manager = (CheckpointManager(args.ckpt, keep_n=3) if args.ckpt else None)
+    manager = (CheckpointManager(args.ckpt, keep_n=3,
+                                 group=None if mesh is None else mesh.group)
+               if args.ckpt else None)
     injector = FailureInjector(schedule=tuple(args.fail_at))
     state = {}
 
     def init_state():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
-        params = init_params(specs, gen, dev)
+        params = (init_params(specs, gen, dev) if ctx is None else
+                  init_params(specs, gen, dev, mesh=mesh, rules=ctx.rules))
         return params, opt.init(params)
 
     def loop(resume_attempt: Optional[int]):
@@ -136,26 +164,28 @@ def train(cfg, args) -> TrainRun:
             (params, opt_state), extra = manager.restore(
                 (params, opt_state), device=dev)
             start = int(extra.get("step", manager.latest_step())) + 1
-            print(f"[restore] resumed from step {start - 1}")
+            log(f"[restore] resumed from step {start - 1}")
         losses = []
         for step in range(start, args.steps):
             injector.maybe_fail(step)
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in pipe.batch(step).items()}
+            if ctx is not None:        # this data rank's rows
+                batch = local_batch(ctx, batch)
             params, opt_state, metrics = train_step(params, opt_state, batch,
                                                     step)
             loss = float(metrics["loss"])         # reads back: a sync
             dt = time.perf_counter() - t0
-            monitor.observe([dt] * n_hosts)   # single-host: uniform
+            monitor.observe([dt] * n_hosts)   # one host: uniform
             losses.append(loss)
             if manager is not None and (step + 1) % args.ckpt_every == 0:
                 manager.save(step, (params, opt_state),
                              extra={"step": step})
             if step % max(1, args.steps // 10) == 0:
-                print(f"[step {step:4d}] loss={loss:.4f} "
-                      f"gnorm={float(metrics['grad_norm']):.3f} "
-                      f"{dt*1e3:.0f}ms")
+                log(f"[step {step:4d}] loss={loss:.4f} "
+                    f"gnorm={float(metrics['grad_norm']):.3f} "
+                    f"{dt*1e3:.0f}ms")
         if manager is not None:
             manager.save(args.steps - 1, (params, opt_state),
                          extra={"step": args.steps - 1})
@@ -166,15 +196,15 @@ def train(cfg, args) -> TrainRun:
     policy = RestartPolicy(max_restarts=max(3, len(args.fail_at) + 1))
     losses, report = run_with_restarts(loop, policy)
     if report.restarts:
-        print(f"[fault] survived {report.restarts} injected failures: "
-              f"{[f[1] for f in report.failures]}")
+        log(f"[fault] survived {report.restarts} injected failures: "
+            f"{[f[1] for f in report.failures]}")
     if monitor.stragglers():
         pipe.rebalance(monitor.shard_weights())
-        print(f"[straggler] rebalanced: {monitor.shard_weights()}")
+        log(f"[straggler] rebalanced: {monitor.shard_weights()}")
     if manager is not None:
         manager.close()
     return TrainRun(losses, report, state["params"], state["opt_state"],
-                    manager and manager.stats)
+                    manager and manager.stats, mesh)
 
 
 def main(argv=None) -> int:
@@ -182,10 +212,12 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    losses = train(cfg, args).losses
-    print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    run = train(cfg, args)
+    losses = run.losses
+    log = print if run.mesh is None or run.mesh.rank == 0 else _quiet
+    log(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     ok = losses[-1] < losses[0]
-    print("loss decreased" if ok else "WARNING: loss did not decrease")
+    log("loss decreased" if ok else "WARNING: loss did not decrease")
     return 0
 
 

@@ -1,3 +1,3 @@
-from .model_zoo import MODEL_FAMILIES, get_model
+from .model_zoo import MODEL_FAMILIES, auto_rules, get_model
 
-__all__ = ["MODEL_FAMILIES", "get_model"]
+__all__ = ["MODEL_FAMILIES", "auto_rules", "get_model"]

@@ -1,9 +1,17 @@
 """Shared building blocks of the language models.
 
 Functional, as in the JAX package: a layer is a ``*_specs`` builder of
-ParamSpecs and a forward function over a dict of tensors. The JAX
-package's sharding context (``ShardCtx``/``constrain``) is gone: with one
-card its constraints are no-ops.
+ParamSpecs and a forward function over a dict of tensors.
+
+Sharding is *logical*, as in the reference: model code places
+activations through :class:`ShardCtx` (a mesh of ranks and its
+``AxisRules``). With ``ctx=None`` the constraints are no-ops and every
+tensor is a plain tensor; with a context the parameters and the batch
+are DTensors (``torch.distributed.tensor``) and :func:`constrain`
+redistributes an activation to the layout its logical axes name, where
+the reference's ``with_sharding_constraint`` is a hint to GSPMD. Ops
+with no DTensor rule (the loss's gather and log-sum-exp over a sharded
+vocab) gather their operand first, beside the call.
 
 Dtypes follow the reference op for op: bf16 activations and weights,
 norms, softmax and activations computed in float32 and cast back.
@@ -14,6 +22,8 @@ so a decode step reads nothing back to the host.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -22,12 +32,143 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
+from repro_torch.distributed.sharding import (AxisRules, ParamSpec,
+                                              is_dtensor, logical_sharding,
+                                              replica_scope, spec_tree_map)
 from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
 
 MASK_VALUE = -1e30
+
+
+# ---------------------------------------------------------------------------
+# sharding context
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """Threaded through forward passes to place activations: a mesh of
+    ranks (``launch.mesh.Mesh``) and its axis rules."""
+
+    mesh: Any
+    rules: AxisRules
+
+    def constrain(self, x: torch.Tensor,
+                  *logical: Optional[str]) -> torch.Tensor:
+        """``x`` redistributed to the layout of ``logical``; a plain
+        tensor is taken as the same whole value in every rank (its
+        gradient comes back whole too)."""
+        sharding = logical_sharding(self.mesh, self.rules, *logical)
+        dm = self.mesh.device_mesh
+        if not is_dtensor(x):
+            from torch.distributed.tensor import DTensor, Replicate
+            x = DTensor.from_local(x, dm, [Replicate()] * dm.ndim,
+                                   run_check=False)
+        return x.redistribute(dm, sharding.placements)
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` whole in every rank (a DTensor replicated over the mesh)."""
+        return self.constrain(x, *([None] * x.dim()))
+
+def constrain(ctx: Optional[ShardCtx], x: torch.Tensor,
+              *logical: Optional[str]) -> torch.Tensor:
+    return x if ctx is None else ctx.constrain(x, *logical)
+
+
+def shard_scope(ctx: Optional[ShardCtx]):
+    """``sharding.replica_scope`` on a mesh, nothing without one."""
+    return contextlib.nullcontext() if ctx is None else replica_scope()
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) over a group, forward only: every rank's partial
+    feeds the one value the group holds replicated, so each rank's
+    gradient is that value's (the backward is the identity)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        from repro_torch.launch import mesh as mesh_ops
+        x = x.clone()
+        mesh_ops.all_reduce(x, group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return grad, None
+
+
+def sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``'s ranks (a local tensor; see
+    :class:`_SumOver`)."""
+    return _SumOver.apply(x, group)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a DTensor's
+    view ops in the backward read its local tensor's strides."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return grad.contiguous()
+
+
+def local_shard(x: torch.Tensor, grad_placements=None) -> torch.Tensor:
+    """A DTensor's local shard (``to_local``), with a contiguous gradient
+    handed back to the DTensor."""
+    return _ContiguousGrad.apply(x.to_local(grad_placements=grad_placements))
+
+
+def on_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor,
+              v: torch.Tensor, **kw) -> torch.Tensor:
+    """``fn(q, k, v, **kw)`` (an attention over [B, H|KH, S, D]) on each
+    rank's shards of DTensor q/k/v: attention is independent per batch
+    row and per kv-head group, as GSPMD partitions it. The batch dim
+    keeps its shard; the head dims keep theirs where q's and k's agree
+    (the same mesh axes, so each rank holds whole GQA groups), and are
+    gathered otherwise. The output is laid out as q."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dm = q.device_mesh
+
+    def keep(p, other):
+        if p.is_shard() and p.dim == 0 and other.is_shard() \
+                and other.dim == 0:
+            return p
+        if p.is_shard() and p.dim == 1 and other == p:
+            return p
+        return Replicate()
+
+    q_to = [keep(a, b) for a, b in zip(q.placements, k.placements)]
+    k_to = [keep(b, a) for a, b in zip(q.placements, k.placements)]
+    out = fn(local_shard(q.redistribute(dm, q_to)),
+             local_shard(k.redistribute(dm, k_to)),
+             local_shard(v.redistribute(dm, k_to)), **kw)
+    return DTensor.from_local(out, dm, q_to, run_check=False)
+
+
+def layer_unroll(cfg):
+    """The reference's ``lax.scan`` ``unroll`` argument for scans over
+    layers (fully unrolled when the config asks for it, else 1). An XLA
+    unroll factor: the port runs its layers as a Python loop and ignores
+    it."""
+    return True if getattr(cfg, "unroll_layers", False) else 1
+
+
+def attn_block_unroll(cfg, n_blocks: int) -> int:
+    """The reference's partial-unroll factor for the blockwise-attention
+    kv scan, capped at 32 (a divisor of ``n_blocks``). An XLA unroll
+    factor: the port's Python loop over kv blocks ignores it."""
+    if not getattr(cfg, "unroll_layers", False):
+        return 1
+    cap = 32
+    u = min(n_blocks, cap)
+    while n_blocks % u:
+        u -= 1
+    return max(u, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -37,8 +178,13 @@ MASK_VALUE = -1e30
 def stack_specs(specs, n: int):
     """Prepend a stacked ``layers`` dim to every ParamSpec in a tree."""
     return spec_tree_map(
-        lambda s: ParamSpec((n,) + s.shape, s.dtype, s.init, s.init_scale),
-        specs)
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.logical_axes,
+                            s.dtype, s.init, s.init_scale), specs)
+
+
+def dense_spec(d_in: int, d_out: int, ax_in: str, ax_out: str,
+               dtype=torch.bfloat16) -> ParamSpec:
+    return ParamSpec((d_in, d_out), (ax_in, ax_out), dtype, "scaled")
 
 
 def layer_params(tree, *index: int):
@@ -122,7 +268,7 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def norm_specs(d: int) -> ParamSpec:
     # rms_norm weight stored as offset-from-1 (init zeros)
-    return ParamSpec((d,), torch.float32, "zeros")
+    return ParamSpec((d,), ("embed",), torch.float32, "zeros")
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +381,9 @@ def banded_local_attention(q: torch.Tensor, k: torch.Tensor,
 
     q/k/v: [B, H|KH, S, D], S % block == 0, full self-attention shapes.
     """
+    if is_dtensor(q):
+        return on_shards(banded_local_attention, q, k, v, window=window,
+                         block=block)
     b, h, s, d = q.shape
     kh = k.shape[1]
     group = h // kh
@@ -309,7 +458,12 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel (``kernels.flash_attention``: the CUDA kernel on the card, its
     plain version on the CPU); the blockwise path otherwise. The models
     pass ``use_pallas=True`` where the reference passes
-    ``cfg.use_pallas or False``, and False where it hard-codes False."""
+    ``cfg.use_pallas or False``, and False where it hard-codes False.
+    DTensor q/k/v (a mesh) run :func:`on_shards`."""
+    if is_dtensor(q):
+        return on_shards(attention, q, k, v, causal=causal, window=window,
+                         kv_len=kv_len, scale=scale, use_pallas=use_pallas,
+                         block_k=block_k)
     if q.shape[2] <= 8 and causal and k.shape[2] > q.shape[2]:
         return dense_decode_attention(q, k, v, window=window, kv_len=kv_len,
                                       scale=scale)
@@ -328,24 +482,33 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attn_specs(d_model: int, n_heads: int, n_kv_heads: int, d_head: int,
                qk_norm: bool = False) -> Params:
     s: Params = {
-        "wq": ParamSpec((d_model, n_heads, d_head), init="scaled"),
-        "wk": ParamSpec((d_model, n_kv_heads, d_head), init="scaled"),
-        "wv": ParamSpec((d_model, n_kv_heads, d_head), init="scaled"),
-        "wo": ParamSpec((n_heads, d_head, d_model), init="scaled"),
+        "wq": ParamSpec((d_model, n_heads, d_head),
+                        ("embed", "heads", "head_dim"), init="scaled"),
+        "wk": ParamSpec((d_model, n_kv_heads, d_head),
+                        ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wv": ParamSpec((d_model, n_kv_heads, d_head),
+                        ("embed", "kv_heads", "head_dim"), init="scaled"),
+        "wo": ParamSpec((n_heads, d_head, d_model),
+                        ("heads", "head_dim", "embed"), init="scaled"),
     }
     if qk_norm:
-        s["q_norm"] = ParamSpec((d_head,), torch.float32, "zeros")
-        s["k_norm"] = ParamSpec((d_head,), torch.float32, "zeros")
+        s["q_norm"] = ParamSpec((d_head,), ("head_dim",), torch.float32,
+                                "zeros")
+        s["k_norm"] = ParamSpec((d_head,), ("head_dim",), torch.float32,
+                                "zeros")
     return s
 
 
 def attn_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
-             rope_theta: float = 10000.0, use_rope: bool = True
+             rope_theta: float = 10000.0, use_rope: bool = True,
+             ctx: Optional[ShardCtx] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x [B,S,D] -> q [B,H,S,Dh], k/v [B,KH,S,Dh] (rope + qk_norm applied)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = constrain(ctx, q, "batch", "seq", "heads", "head_dim")
+    k = constrain(ctx, k, "batch", "seq", "kv_heads", "head_dim")
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -355,9 +518,11 @@ def attn_qkv(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+def attn_out(p: Params, o: torch.Tensor,
+             ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """o [B,H,S,Dh] -> [B,S,D]."""
-    return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    out = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return constrain(ctx, out, "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +531,13 @@ def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
 
 def mlp_specs(d_model: int, d_ff: int, gated: bool = True) -> Params:
     s: Params = {
-        "w_up": ParamSpec((d_model, d_ff), init="scaled"),
-        "w_down": ParamSpec((d_ff, d_model), init="scaled"),
+        "w_up": ParamSpec((d_model, d_ff), ("embed", "ffn"), init="scaled"),
+        "w_down": ParamSpec((d_ff, d_model), ("ffn", "embed"),
+                            init="scaled"),
     }
     if gated:
-        s["w_gate"] = ParamSpec((d_model, d_ff), init="scaled")
+        s["w_gate"] = ParamSpec((d_model, d_ff), ("embed", "ffn"),
+                                init="scaled")
     return s
 
 
@@ -379,14 +546,16 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p: Params, x: torch.Tensor, act=F.silu) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor, ctx: Optional[ShardCtx] = None,
+        act=F.silu) -> torch.Tensor:
     up = x @ p["w_up"]
     if "w_gate" in p:
         gate = x @ p["w_gate"]
         h = act(gate.float()).to(x.dtype) * up
     else:
         h = act(up.float()).to(x.dtype)
-    return h @ p["w_down"]
+    h = constrain(ctx, h, "batch", "seq", "ffn")
+    return constrain(ctx, h @ p["w_down"], "batch", "seq", "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -400,38 +569,104 @@ def round_up(n: int, mult: int) -> int:
 def embed_specs(vocab_padded: int, d_model: int,
                 tied: bool = True) -> Params:
     s: Params = {"embedding": ParamSpec((vocab_padded, d_model),
-                                        init="normal")}
+                                        ("vocab", "embed"), init="normal")}
     if not tied:
-        s["unembed"] = ParamSpec((d_model, vocab_padded), init="scaled")
+        s["unembed"] = ParamSpec((d_model, vocab_padded),
+                                 ("embed", "vocab"), init="scaled")
     return s
 
 
-def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens]
+def embed(p: Params, tokens: torch.Tensor,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    if ctx is None:
+        return p["embedding"][tokens]
+    # the lookup keeps the table's vocab shard (a masked partial sum) and
+    # gathers any other (FSDP's embed shard) first
+    from torch.distributed.tensor import Replicate
+    table = p["embedding"]
+    table = table.redistribute(table.device_mesh, [
+        q if q.is_shard() and q.dim == 0 else Replicate()
+        for q in table.placements])
+    return constrain(ctx, F.embedding(tokens, table), "batch", "seq", "embed")
 
 
-def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
+def unembed(p: Params, x: torch.Tensor,
+            ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     if "unembed" in p:
-        return x @ p["unembed"]
-    return x @ p["embedding"].T
+        logits = x @ p["unembed"]
+    else:
+        logits = x @ p["embedding"].T
+    return constrain(ctx, logits, "batch", "seq", "vocab")
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None,
                  vocab_size: Optional[int] = None) -> torch.Tensor:
     """Mean next-token cross-entropy (float32). ``vocab_size`` masks padded
-    vocab rows."""
+    vocab rows. On a mesh (DTensor logits) the mean is over the global
+    batch, as the reference's GSPMD loss, and a vocab dim sharded over
+    one mesh axis stays sharded: :func:`_vocab_parallel_nll` (the
+    reference's logsumexp lowers to partial reductions + all-reduce)."""
     lf = logits.float()
+    nll = (_vocab_parallel_nll(lf, labels, vocab_size) if is_dtensor(lf)
+           else _nll(lf, labels, vocab_size))
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _nll(lf: torch.Tensor, labels: torch.Tensor,
+         vocab_size: Optional[int]) -> torch.Tensor:
+    """Per-token NLL of float32 logits whose vocab dim is whole."""
     if vocab_size is not None and vocab_size < lf.shape[-1]:
         pad = torch.arange(lf.shape[-1], device=lf.device) >= vocab_size
         lf = lf.masked_fill(pad, MASK_VALUE)
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
-    nll = lse - gold
-    if mask is None:
-        return nll.mean()
-    mask = mask.float()
-    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return lse - gold
+
+
+def _vocab_parallel_nll(lf: torch.Tensor, labels: torch.Tensor,
+                        vocab_size: Optional[int]) -> torch.Tensor:
+    """Per-token NLL of DTensor float32 logits [B,S,V] as a DTensor laid
+    out as their other dims. Where one mesh axis shards the vocab dim
+    (and nothing is partial), each rank takes its columns' max, sum of
+    exponentials and gold logit, and the vocab axis's group sums them (a
+    max, then two sums of [B,S] values); otherwise the vocab dim is
+    gathered first."""
+    from torch.distributed.tensor import DTensor, Replicate
+    dm, places = lf.device_mesh, list(lf.placements)
+    last = lf.dim() - 1
+    vocab_dims = [i for i, p in enumerate(places)
+                  if p.is_shard() and p.dim == last]
+    v_total = lf.shape[-1]
+    if len(vocab_dims) != 1 or any(p.is_partial() for p in places):
+        return _nll(lf.redistribute(dm, [
+            Replicate() if p.is_partial() or (p.is_shard() and p.dim == last)
+            else p for p in places]), labels, vocab_size)
+    from repro_torch.launch import mesh as mesh_ops
+    axis = vocab_dims[0]
+    group = dm.get_group(axis)
+    n = dm.size(axis)
+    local = local_shard(lf, places)
+    labels = labels.to_local() if is_dtensor(labels) else labels
+    v_local = v_total // n
+    v0 = dm.get_local_rank(axis) * v_local
+    if vocab_size is not None and vocab_size < v_total:
+        pad = v0 + torch.arange(v_local, device=local.device) >= vocab_size
+        local = local.masked_fill(pad, MASK_VALUE)
+    m = local.detach().amax(-1)
+    mesh_ops.all_reduce(m, group, op=torch.distributed.ReduceOp.MAX)
+    lse = torch.log(sum_over(torch.exp(local - m[..., None]).sum(-1),
+                             group)) + m
+    rel = labels.long() - v0
+    mine = (rel >= 0) & (rel < v_local)
+    gold = torch.gather(local, -1, rel.clamp(0, v_local - 1)[..., None])
+    gold = sum_over(torch.where(mine, gold[..., 0], 0.0), group)
+    return DTensor.from_local(
+        lse - gold, dm, [Replicate() if i == axis else p
+                         for i, p in enumerate(places)], run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +675,14 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
 
 def kv_cache_specs(n_layers: int, batch: int, n_kv_heads: int, max_len: int,
                    d_head: int, dtype=torch.bfloat16) -> Params:
-    """Stacked [L, B, KH, S, Dh] cache + write index."""
-    kv = ParamSpec((n_layers, batch, n_kv_heads, max_len, d_head), dtype,
-                   "zeros")
-    return {"k": kv, "v": kv, "index": ParamSpec((), torch.int32, "zeros")}
+    """Stacked [L, B, KH, S, Dh] cache + write index. The cache ``seq``
+    dim is ``kv_seq``: ``auto_rules`` gives it the ``model`` axis when
+    the kv heads cannot use it."""
+    kv = ParamSpec((n_layers, batch, n_kv_heads, max_len, d_head),
+                   ("layers", "batch", "kv_heads", "kv_seq", "head_dim"),
+                   dtype, "zeros")
+    return {"k": kv, "v": kv,
+            "index": ParamSpec((), (), torch.int32, "zeros")}
 
 
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,

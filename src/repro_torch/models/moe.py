@@ -19,12 +19,18 @@ step-by-step path must give the same tokens on the card):
   sorted order (by expert), as the reference's scatter-add does, by a
   gather through the inverse permutation: no atomics.
 
-The GSPMD dispatch of the JAX package (``moe_block_local``, its
-``shard_map`` over the mesh) is not ported: the port runs one device.
+On a mesh (``ctx``): experts are sharded over the ``model`` axis, and
+under FSDP the per-expert ffn dim also over ``data``.
+:func:`moe_block_local` (``cfg.moe_impl == "local"``) is the reference's
+``shard_map`` dispatch: its two bodies run on each rank's local shards
+(``to_local``) with one explicit collective, a bf16 all-reduce over
+``model`` per layer, and the expert products between them on DTensors.
+The global :func:`moe_block` on a mesh routes the whole batch in every
+rank and places its expert buffer by the rule table.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,8 +38,9 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import ParamSpec
 
 from . import transformer as tf
-from .layers import (Params, embed_specs, mlp, mlp_specs, norm_specs,
-                     rms_norm, round_up, stack_specs, unembed)
+from .layers import (Params, ShardCtx, constrain, embed_specs, local_shard,
+                     mlp, mlp_specs, norm_specs, rms_norm, round_up,
+                     shard_scope, stack_specs, sum_over, unembed)
 
 
 # ---------------------------------------------------------------------------
@@ -43,10 +50,14 @@ from .layers import (Params, embed_specs, mlp, mlp_specs, norm_specs,
 def moe_mlp_specs(cfg) -> Params:
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
     s: Params = {
-        "router": ParamSpec((d, e), torch.float32, "scaled"),
-        "w_gate": ParamSpec((e, d, f), init="scaled"),
-        "w_up": ParamSpec((e, d, f), init="scaled"),
-        "w_down": ParamSpec((e, f, d), init="scaled"),
+        "router": ParamSpec((d, e), ("embed", "expert"), torch.float32,
+                            "scaled"),
+        "w_gate": ParamSpec((e, d, f), ("expert", "embed", "expert_ffn"),
+                            init="scaled"),
+        "w_up": ParamSpec((e, d, f), ("expert", "embed", "expert_ffn"),
+                          init="scaled"),
+        "w_down": ParamSpec((e, f, d), ("expert", "expert_ffn", "embed"),
+                            init="scaled"),
     }
     if cfg.n_shared_experts:
         s["shared"] = mlp_specs(cfg.d_model,
@@ -112,8 +123,37 @@ def _route_and_sort(cfg, router: torch.Tensor, xl: torch.Tensor, cap: int):
     return dest, tok_sorted, w_sorted, order
 
 
-def moe_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """x [B,S,D] -> [B,S,D]; top-k routing, capacity C per expert."""
+def _combine_order(order: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """[t, k]: the sorted positions of each token's k pairs, in sorted
+    order (the pairs of one token are sorted by expert)."""
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=order.device)
+    return torch.sort(inv.reshape(t, k), dim=1).values
+
+
+def _dispatch(xf: torch.Tensor, dest: torch.Tensor,
+              tok_sorted: torch.Tensor, rows: int) -> torch.Tensor:
+    """The [rows, d] expert buffer: row ``dest[i]`` takes token
+    ``tok_sorted[i]``; row ``rows`` (the sentinel) takes the dropped
+    pairs and is cut off."""
+    buf = xf.new_zeros((rows + 1, xf.shape[1]))
+    buf[dest] = xf[tok_sorted]
+    return buf[:rows]
+
+
+def _combine(contrib: torch.Tensor, order: torch.Tensor, t: int,
+             k: int) -> torch.Tensor:
+    """Each token's k contributions added in sorted order, by a gather
+    through the inverse permutation (no atomics)."""
+    per_tok = contrib[_combine_order(order, t, k)]           # [t,k,d]
+    out = per_tok[:, 0]
+    for j in range(1, k):
+        out = out + per_tok[:, j]
+    return out
+
+
+def _moe_block_plain(cfg, p: Params, x: torch.Tensor,
+                     ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     b, s, d = x.shape
     t = b * s
     e, k = cfg.n_experts, cfg.top_k
@@ -122,33 +162,161 @@ def moe_block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
     dest, tok_sorted, w_sorted, order = _route_and_sort(cfg, p["router"],
                                                         xf, cap)
 
-    # gather tokens into the [E,C,D] buffer; row E*C takes the dropped
-    # pairs and is cut off
-    buf = x.new_zeros((e * cap + 1, d))
-    buf[dest] = xf[tok_sorted]
-    buf = buf[:e * cap].reshape(e, cap, d)
+    # gather tokens into the [E,C,D] buffer
+    buf = _dispatch(xf, dest, tok_sorted, e * cap).reshape(e, cap, d)
+    buf = constrain(ctx, buf, "expert", None, "embed")
 
     # expert compute (real work only)
     gate = torch.bmm(buf, p["w_gate"])
     up = torch.bmm(buf, p["w_up"])
     h = F.silu(gate.float()).to(x.dtype) * up
-    out_buf = torch.bmm(h, p["w_down"]).reshape(e * cap, d)
+    h = constrain(ctx, h, "expert", None, "expert_ffn")
+    out_buf = torch.bmm(h, p["w_down"])
+    if ctx is not None:
+        out_buf = local_shard(ctx.replicated(out_buf))
+    out_buf = out_buf.reshape(e * cap, d)
 
     # combine: each token's k weighted outputs, added in bf16 in sorted
     # order (the pairs of one token are sorted by expert)
     contrib = (out_buf[torch.clamp(dest, max=e * cap - 1)]
                * w_sorted[:, None].to(x.dtype))
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=x.device)
-    ranks = torch.sort(inv.reshape(t, k), dim=1).values      # [t,k]
-    per_tok = contrib[ranks]                                 # [t,k,d]
-    out = per_tok[:, 0]
-    for j in range(1, k):
-        out = out + per_tok[:, j]
+    out = _combine(contrib, order, t, k)
 
     if "shared" in p:
         out = out + mlp(p["shared"], xf[None])[0]
     return out.reshape(b, s, d)
+
+
+def moe_block(cfg, p: Params, x: torch.Tensor,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    """x [B,S,D] -> [B,S,D]; top-k routing, capacity C per expert. On a
+    mesh with ``cfg.moe_impl == "local"`` and experts sharded over
+    ``model``, :func:`moe_block_local` (the reference's condition);
+    otherwise every rank routes the whole batch."""
+    if (cfg.moe_impl == "local" and ctx is not None
+            and _expert_sharded_over_model(ctx)
+            and (x.shape[0] * x.shape[1])
+            % max(1, _n_batch_shards(ctx)) == 0):
+        return moe_block_local(cfg, p, x, ctx)
+    if ctx is None:
+        return _moe_block_plain(cfg, p, x)
+    # routing, dispatch and combine on the whole batch in every rank;
+    # the expert buffer is placed by the rule table between them
+    params = dict(p, router=local_shard(ctx.replicated(p["router"])))
+    if "shared" in p:
+        params["shared"] = {n: local_shard(ctx.replicated(w))
+                            for n, w in p["shared"].items()}
+    out = _moe_block_plain(cfg, params, local_shard(ctx.replicated(x)), ctx)
+    return constrain(ctx, out, "batch", "seq", "embed")
+
+
+# ---------------------------------------------------------------------------
+# the local dispatch on a mesh (the reference's two shard_map bodies)
+# ---------------------------------------------------------------------------
+
+def _batch_mesh_axes(ctx: Optional[ShardCtx]) -> Tuple[str, ...]:
+    """Mesh axes the `batch` logical axis maps to (tuple), or ()."""
+    if ctx is None:
+        return ()
+    spec = ctx.rules.spec_for(("batch",))
+    if not len(spec) or spec[0] is None:
+        return ()
+    ax = spec[0]
+    return (ax,) if isinstance(ax, str) else tuple(ax)
+
+
+def _expert_sharded_over_model(ctx: Optional[ShardCtx]) -> bool:
+    if ctx is None or "model" not in ctx.mesh.shape:
+        return False
+    spec = ctx.rules.spec_for(("expert",))
+    return len(spec) > 0 and spec[0] == "model"
+
+
+def _n_batch_shards(ctx: Optional[ShardCtx]) -> int:
+    n = 1
+    for a in _batch_mesh_axes(ctx):
+        n *= ctx.mesh.shape[a]
+    return n
+
+
+def moe_block_local(cfg, p: Params, x: torch.Tensor,
+                    ctx: ShardCtx) -> torch.Tensor:
+    """The local dispatch: routing never leaves the data shard, the
+    expert products are (data x model)-sharded, and the combine is a
+    masked float32 accumulation plus ONE bf16 all-reduce over ``model``
+    per layer, as the reference's ``shard_map`` bodies.
+
+    The routing is computed in every rank of a data shard (replicated
+    over ``model``); the dispatch builds only this rank's expert slice,
+    ``E_local*C + 1`` rows with the sentinel last, for the capacity of
+    ``t_local`` tokens (one data shard's)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    mesh = ctx.mesh
+    dm = mesh.device_mesh
+    dn = _batch_mesh_axes(ctx)
+    t_local = t // _n_batch_shards(ctx)
+    cap = capacity(cfg, t_local)
+    e_local = e // mesh.shape["model"]
+    e0 = mesh.coords["model"] * e_local
+
+    # the layouts of the bodies' inputs and outputs, per mesh axis: batch
+    # rows over `dn`, experts over `model`; a replicated input's gradient
+    # is partial over the axes whose ranks each see part of its use
+    def places(batch_dim, model_place):
+        return [Shard(batch_dim) if a in dn
+                else model_place if a == "model" else Replicate()
+                for a in mesh.axis_names]
+
+    def grads_of(batch_dim):
+        return [Shard(batch_dim) if a in dn
+                else Partial() if a == "model" else Replicate()
+                for a in mesh.axis_names]
+
+    # --- dispatch body --------------------------------------------------------
+    x_in = ctx.constrain(x, "batch", "seq", "embed")
+    xl = local_shard(x_in, grads_of(0)).reshape(t_local, d)
+    router = local_shard(ctx.replicated(p["router"]), [
+        Partial() if a in dn or a == "model" else Replicate()
+        for a in mesh.axis_names])
+    dest, tok_sorted, w_sorted, order = _route_and_sort(cfg, router, xl, cap)
+    local = dest - e0 * cap
+    oob = torch.where((local >= 0) & (local < e_local * cap), local,
+                      e_local * cap)
+    buf = _dispatch(xl, oob, tok_sorted, e_local * cap)
+    buf = DTensor.from_local(buf.reshape(1, e_local, cap, d), dm,
+                             places(0, Shard(1)), run_check=False)
+
+    # --- expert compute: [x(data), e(model), c, d] x [e(model), d, f] ---------
+    buf = constrain(ctx, buf, "batch", "expert", None, "embed")
+    gate = torch.einsum("xecd,edf->xecf", buf, p["w_gate"])
+    up = torch.einsum("xecd,edf->xecf", buf, p["w_up"])
+    h = F.silu(gate.float()).to(x.dtype) * up
+    h = constrain(ctx, h, "batch", "expert", None, "expert_ffn")
+    out_buf = torch.einsum("xecf,efd->xecd", h, p["w_down"])
+    out_buf = constrain(ctx, out_buf, "batch", "expert", None, "embed")
+
+    # --- combine body ---------------------------------------------------------
+    flat = local_shard(out_buf).reshape(e_local * cap, d)
+    expert_of = dest // cap
+    mine = (expert_of >= e0) & (expert_of < e0 + e_local) & (dest < e * cap)
+    li = torch.where(mine, (expert_of - e0) * cap + dest % cap, 0)
+    contrib = flat[li].float() * torch.where(mine, w_sorted, 0.0)[:, None]
+    out = _combine(contrib, order, t_local, k)
+    # local accumulation in f32; the cross-rank sum rides the wire in
+    # bf16 (each token has at most top_k contributions), as the reference
+    out = sum_over(out.to(torch.bfloat16),
+                              mesh.group_for("model"))
+    out = DTensor.from_local(out.to(x.dtype), dm, places(0, Replicate()),
+                             run_check=False)
+
+    if "shared" in p:
+        xf = x_in.reshape(t, d)
+        out = out + mlp(p["shared"], xf[None], ctx)[0]
+    out = out.reshape(b, s, d)
+    return constrain(ctx, out, "batch", "seq", "embed")
 
 
 def aux_load_loss(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -168,26 +336,32 @@ def aux_load_loss(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _ffn(cfg) -> tf.FFN:
-    return lambda p, h: moe_block(cfg, p["moe"], h)
+    return lambda p, h, ctx=None: moe_block(cfg, p["moe"], h, ctx)
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
-          train: bool = False) -> torch.Tensor:
+          train: bool = False,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """tokens [B,S] -> logits [B,S,V_padded] (no banded route, as in the
     reference); ``train`` takes the dense family's training route."""
-    x = tf._embed(params, tokens, None)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = tf.run_layers(cfg, params["layers"], x, positions, _ffn(cfg),
-                      train=train)
-    return unembed(params["embed"], rms_norm(x, params["ln_f"]))
+    with shard_scope(ctx):
+        x = tf._embed(params, tokens, None, ctx)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = constrain(ctx, x, "batch", "seq_sp", "embed")
+        x = tf.run_layers(cfg, params["layers"], x, positions, _ffn(cfg),
+                          train=train, ctx=ctx)
+        return unembed(params["embed"], rms_norm(x, params["ln_f"]), ctx)
 
 
 cache_specs = tf.cache_specs
 
 
-def prefill(cfg, params: Params, tokens: torch.Tensor):
-    return tf.prefill(cfg, params, tokens, ffn=_ffn(cfg))
+def prefill(cfg, params: Params, tokens: torch.Tensor,
+            ctx: Optional[ShardCtx] = None):
+    return tf.prefill(cfg, params, tokens, ffn=_ffn(cfg), ctx=ctx)
 
 
-def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor):
-    return tf.decode_step(cfg, params, cache, tokens, ffn=_ffn(cfg))
+def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
+                ctx: Optional[ShardCtx] = None):
+    return tf.decode_step(cfg, params, cache, tokens, ffn=_ffn(cfg),
+                          ctx=ctx)

@@ -23,8 +23,9 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.rwkv6 import rwkv6 as wkv6
 
-from .layers import (Params, embed, embed_specs, layer_norm, layer_params,
-                     remat, stack_specs, unembed, unstack)
+from .layers import (Params, ShardCtx, constrain, embed, embed_specs,
+                     layer_norm, layer_params, remat, shard_scope,
+                     stack_specs, unembed, unstack)
 
 F32 = torch.float32
 
@@ -34,8 +35,8 @@ F32 = torch.float32
 # ---------------------------------------------------------------------------
 
 def _ln_specs(d: int) -> Params:
-    return {"w": ParamSpec((d,), F32, "ones"),
-            "b": ParamSpec((d,), F32, "zeros")}
+    return {"w": ParamSpec((d,), ("embed",), F32, "ones"),
+            "b": ParamSpec((d,), ("embed",), F32, "zeros")}
 
 
 def layer_specs(cfg) -> Params:
@@ -47,30 +48,36 @@ def layer_specs(cfg) -> Params:
         "ln1": _ln_specs(d), "ln2": _ln_specs(d),
         "tmix": {
             # token-shift lerp ratios per stream
-            "mu_r": ParamSpec((d,), F32, "zeros"),
-            "mu_k": ParamSpec((d,), F32, "zeros"),
-            "mu_v": ParamSpec((d,), F32, "zeros"),
-            "mu_w": ParamSpec((d,), F32, "zeros"),
-            "mu_g": ParamSpec((d,), F32, "zeros"),
-            "w_r": ParamSpec((d, d), init="scaled"),
-            "w_k": ParamSpec((d, d), init="scaled"),
-            "w_v": ParamSpec((d, d), init="scaled"),
-            "w_g": ParamSpec((d, d), init="scaled"),
-            "w_o": ParamSpec((d, d), init="scaled"),
+            "mu_r": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "mu_k": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "mu_v": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "mu_w": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "mu_g": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "w_r": ParamSpec((d, d), ("embed", "heads_flat"),
+                              init="scaled"),
+            "w_k": ParamSpec((d, d), ("embed", "heads_flat"),
+                              init="scaled"),
+            "w_v": ParamSpec((d, d), ("embed", "heads_flat"),
+                              init="scaled"),
+            "w_g": ParamSpec((d, d), ("embed", "heads_flat"),
+                              init="scaled"),
+            "w_o": ParamSpec((d, d), ("heads_flat", "embed"),
+                             init="scaled"),
             # data-dependent decay LoRA (Finch): w = exp(-exp(w0 + B tanh(A x)))
-            "decay_a": ParamSpec((d, lora), init="scaled"),
-            "decay_b": ParamSpec((lora, d), init="scaled"),
-            "decay_w0": ParamSpec((d,), F32, "zeros"),
-            "bonus_u": ParamSpec((h, n), F32, "zeros"),
-            "ln_x_w": ParamSpec((d,), F32, "ones"),
-            "ln_x_b": ParamSpec((d,), F32, "zeros"),
+            "decay_a": ParamSpec((d, lora), ("embed", None), init="scaled"),
+            "decay_b": ParamSpec((lora, d), (None, "heads_flat"),
+                                 init="scaled"),
+            "decay_w0": ParamSpec((d,), ("heads_flat",), F32, "zeros"),
+            "bonus_u": ParamSpec((h, n), ("heads", "state"), F32, "zeros"),
+            "ln_x_w": ParamSpec((d,), ("heads_flat",), F32, "ones"),
+            "ln_x_b": ParamSpec((d,), ("heads_flat",), F32, "zeros"),
         },
         "cmix": {
-            "mu_k": ParamSpec((d,), F32, "zeros"),
-            "mu_r": ParamSpec((d,), F32, "zeros"),
-            "w_k": ParamSpec((d, cfg.d_ff), init="scaled"),
-            "w_v": ParamSpec((cfg.d_ff, d), init="scaled"),
-            "w_r": ParamSpec((d, d), init="scaled"),
+            "mu_k": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "mu_r": ParamSpec((d,), ("embed",), F32, "zeros"),
+            "w_k": ParamSpec((d, cfg.d_ff), ("embed", "ffn"), init="scaled"),
+            "w_v": ParamSpec((cfg.d_ff, d), ("ffn", "embed"), init="scaled"),
+            "w_r": ParamSpec((d, d), ("embed", "embed_out"), init="scaled"),
         },
     }
 
@@ -99,7 +106,8 @@ def _lerp(x, xx, mu):
     return x + (xx - x) * mu.to(x.dtype)
 
 
-def time_mix(cfg, p: Params, x: torch.Tensor, shift_state, wkv_state
+def time_mix(cfg, p: Params, x: torch.Tensor, shift_state, wkv_state,
+             ctx: Optional[ShardCtx] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, d = x.shape
     n = cfg.ssm_head_dim
@@ -116,60 +124,70 @@ def time_mix(cfg, p: Params, x: torch.Tensor, shift_state, wkv_state
         (p["decay_w0"].float() + dd.float()).clamp(-10.0, 5.0)))
 
     def heads(t):
-        return t.reshape(b, s, h, n).transpose(1, 2)
+        return constrain(ctx, t.reshape(b, s, h, n).transpose(1, 2),
+                         "batch", "heads", "seq", "state")
 
     y, wkv_out = wkv6(heads(r), heads(k), heads(v), heads(w.to(x.dtype)),
                       p["bonus_u"], state=wkv_state)
     y = y.transpose(1, 2).reshape(b, s, d)
     y = layer_norm(y, p["ln_x_w"], p["ln_x_b"])   # per-token group norm
     y = y * F.silu(g.float()).to(y.dtype)
-    return y @ p["w_o"], x[:, -1], wkv_out
+    out = constrain(ctx, y @ p["w_o"], "batch", "seq", "embed")
+    return out, x[:, -1], wkv_out
 
 
-def channel_mix(cfg, p: Params, x: torch.Tensor, shift_state
+def channel_mix(cfg, p: Params, x: torch.Tensor, shift_state,
+                ctx: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     xx = _shift(x, shift_state)
     xk = _lerp(x, xx, p["mu_k"])
     xr = _lerp(x, xx, p["mu_r"])
     k = xk @ p["w_k"]
     k = torch.square(torch.relu(k.float())).to(x.dtype)
+    k = constrain(ctx, k, "batch", "seq", "ffn")
     v = k @ p["w_v"]
     r = torch.sigmoid((xr @ p["w_r"]).float())
     return v * r.to(v.dtype), x[:, -1]
 
 
-def block_fwd(cfg, p: Params, x, state):
+def block_fwd(cfg, p: Params, x, state, ctx: Optional[ShardCtx] = None):
     """state = None (full sequence) or (shift_t [B,D], shift_c [B,D],
     wkv [B,H,N,N])."""
     st, sc, wkv_in = state if state is not None else (None, None, None)
     y, st_out, wkv_out = time_mix(cfg, p["tmix"],
                                   layer_norm(x, p["ln1"]["w"], p["ln1"]["b"]),
-                                  st, wkv_in)
+                                  st, wkv_in, ctx)
     x = x + y
     y, sc_out = channel_mix(cfg, p["cmix"],
-                            layer_norm(x, p["ln2"]["w"], p["ln2"]["b"]), sc)
-    return x + y, (st_out, sc_out, wkv_out)
+                            layer_norm(x, p["ln2"]["w"], p["ln2"]["b"]), sc,
+                            ctx)
+    x = constrain(ctx, x + y, "batch", "seq_sp", "embed")
+    return x, (st_out, sc_out, wkv_out)
 
 
 # ---------------------------------------------------------------------------
 # entry point
 # ---------------------------------------------------------------------------
 
-def _block(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return block_fwd(cfg, p, x, None)[0]
+def _block(cfg, p: Params, x: torch.Tensor,
+           ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    return block_fwd(cfg, p, x, None, ctx)[0]
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
-          train: bool = False) -> torch.Tensor:
+          train: bool = False,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """tokens [B,S] -> logits [B,S,vocab_padded]; ``train`` takes the
     training route."""
-    x = embed(params["embed"], tokens)
-    x = layer_norm(x, params["ln_in"]["w"], params["ln_in"]["b"])
-    block = remat(cfg, _block, train)
-    for p in unstack(params["layers"], cfg.n_layers):
-        x = block(cfg, p, x)
-    x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
-    return unembed(params["embed"], x)
+    with shard_scope(ctx):
+        x = embed(params["embed"], tokens, ctx)
+        x = layer_norm(x, params["ln_in"]["w"], params["ln_in"]["b"])
+        x = constrain(ctx, x, "batch", "seq_sp", "embed")
+        block = remat(cfg, _block, train)
+        for p in unstack(params["layers"], cfg.n_layers):
+            x = block(cfg, p, x, ctx)
+        x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
+        return unembed(params["embed"], x, ctx)
 
 
 def cache_specs(cfg, batch: int, max_len: int) -> Params:
@@ -178,26 +196,32 @@ def cache_specs(cfg, batch: int, max_len: int) -> Params:
     h = d // n
     L = cfg.n_layers
     return {
-        "shift_t": ParamSpec((L, batch, d), torch.bfloat16, "zeros"),
-        "shift_c": ParamSpec((L, batch, d), torch.bfloat16, "zeros"),
-        "wkv": ParamSpec((L, batch, h, n, n), F32, "zeros"),
-        "index": ParamSpec((), torch.int32, "zeros"),
+        "shift_t": ParamSpec((L, batch, d), ("layers", "batch", "embed"),
+                             torch.bfloat16, "zeros"),
+        "shift_c": ParamSpec((L, batch, d), ("layers", "batch", "embed"),
+                             torch.bfloat16, "zeros"),
+        "wkv": ParamSpec((L, batch, h, n, n),
+                         ("layers", "batch", "heads", "state", "state"),
+                         F32, "zeros"),
+        "index": ParamSpec((), (), torch.int32, "zeros"),
     }
 
 
-def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
-    x = embed(params["embed"], tokens)
+def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache,
+                    ctx: Optional[ShardCtx] = None):
+    x = embed(params["embed"], tokens, ctx)
     x = layer_norm(x, params["ln_in"]["w"], params["ln_in"]["b"])
     st, sc, wkv = [], [], []
     for i in range(cfg.n_layers):
         x, (st_i, sc_i, wkv_i) = block_fwd(
             cfg, layer_params(params["layers"], i), x,
-            (cache["shift_t"][i], cache["shift_c"][i], cache["wkv"][i]))
+            (cache["shift_t"][i], cache["shift_c"][i], cache["wkv"][i]),
+            ctx)
         st.append(st_i)
         sc.append(sc_i)
         wkv.append(wkv_i)
     x = layer_norm(x, params["ln_f"]["w"], params["ln_f"]["b"])
-    logits = unembed(params["embed"], x[:, -1:])
+    logits = unembed(params["embed"], x[:, -1:], ctx)
     return logits, {
         "shift_t": torch.stack(st).to(cache["shift_t"].dtype),
         "shift_c": torch.stack(sc).to(cache["shift_c"].dtype),
@@ -205,14 +229,18 @@ def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
         "index": cache["index"] + tokens.shape[1]}
 
 
-def prefill(cfg, params: Params, tokens: torch.Tensor):
+def prefill(cfg, params: Params, tokens: torch.Tensor,
+            ctx: Optional[ShardCtx] = None):
     """tokens [B,S] -> (last-position logits [B,1,V], recurrent state)."""
     zero = spec_tree_map(
         lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=tokens.device),
         cache_specs(cfg, tokens.shape[0], tokens.shape[1]))
-    return _run_with_state(cfg, params, tokens, zero)
+    with shard_scope(ctx):
+        return _run_with_state(cfg, params, tokens, zero, ctx)
 
 
-def decode_step(cfg, params: Params, cache, tokens: torch.Tensor):
+def decode_step(cfg, params: Params, cache, tokens: torch.Tensor,
+                ctx: Optional[ShardCtx] = None):
     """tokens [B,1] -> (logits [B,1,V], state one token on)."""
-    return _run_with_state(cfg, params, tokens, cache)
+    with shard_scope(ctx):
+        return _run_with_state(cfg, params, tokens, cache, ctx)

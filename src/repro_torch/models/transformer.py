@@ -26,6 +26,10 @@ the cache in place.
 
 The MoE family reuses this module's layer loops with its own
 feed-forward block (``ffn``).
+
+Every entry point takes the reference's ``ctx`` (``layers.ShardCtx``)
+and places activations at the reference's seven ``constrain`` sites;
+``ctx=None`` changes nothing.
 """
 from __future__ import annotations
 
@@ -33,18 +37,19 @@ from typing import Callable, List, Optional, Tuple
 
 import torch
 
-from .layers import (Params, attention, attn_out, attn_qkv, attn_specs,
-                     banded_local_attention, cache_update, embed,
-                     embed_specs, kv_cache_specs, layer_params, mlp,
-                     mlp_specs, norm_specs, remat, rms_norm, stack_specs,
-                     unembed, unstack)
+from .layers import (Params, ShardCtx, attention, attn_out, attn_qkv,
+                     attn_specs, banded_local_attention, cache_update,
+                     constrain, embed, embed_specs, kv_cache_specs,
+                     layer_params, mlp, mlp_specs, norm_specs, remat,
+                     rms_norm, shard_scope, stack_specs, unembed, unstack)
 
-#: the feed-forward half of a layer: (layer params, normed x) -> delta
-FFN = Callable[[Params, torch.Tensor], torch.Tensor]
+#: the feed-forward half of a layer: (layer params, normed x, ctx) -> delta
+FFN = Callable[[Params, torch.Tensor, Optional[ShardCtx]], torch.Tensor]
 
 
-def dense_ffn(p: Params, h: torch.Tensor) -> torch.Tensor:
-    return mlp(p["mlp"], h)
+def dense_ffn(p: Params, h: torch.Tensor,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    return mlp(p["mlp"], h, ctx)
 
 
 # ---------------------------------------------------------------------------
@@ -87,16 +92,18 @@ def layer_windows(cfg) -> List[int]:
 # ---------------------------------------------------------------------------
 
 def layer_fwd(cfg, p: Params, x: torch.Tensor, positions: torch.Tensor,
-              window: int, ffn: FFN = dense_ffn,
-              train: bool = False) -> torch.Tensor:
+              window: int, ffn: FFN = dense_ffn, train: bool = False,
+              ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Full-sequence causal layer: attention on the flash kernel's route,
     or with ``train`` on the blockwise path."""
     h = rms_norm(x, p["ln_attn"])
-    q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta)
+    q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta,
+                       ctx=ctx)
     o = attention(q, k, v, causal=True, window=window,
                   use_pallas=not train)
-    x = x + attn_out(p["attn"], o)
-    return x + ffn(p, rms_norm(x, p["ln_mlp"]))
+    x = x + attn_out(p["attn"], o, ctx)
+    x = x + ffn(p, rms_norm(x, p["ln_mlp"]), ctx)
+    return constrain(ctx, x, "batch", "seq_sp", "embed")
 
 
 def _banded_ok(cfg, seq_len: int) -> bool:
@@ -109,20 +116,24 @@ def _banded_ok(cfg, seq_len: int) -> bool:
 
 
 def _local_layer_fwd(cfg, p: Params, x: torch.Tensor,
-                     positions: torch.Tensor) -> torch.Tensor:
+                     positions: torch.Tensor,
+                     ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Local layer on the static-window banded path (computes only the
     band)."""
     h = rms_norm(x, p["ln_attn"])
-    q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta)
+    q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta,
+                       ctx=ctx)
     block = max(cfg.window_size, min(1024, q.shape[2]))
     o = banded_local_attention(q, k, v, window=cfg.window_size, block=block)
-    x = x + attn_out(p["attn"], o)
-    return x + mlp(p["mlp"], rms_norm(x, p["ln_mlp"]))
+    x = x + attn_out(p["attn"], o, ctx)
+    x = x + mlp(p["mlp"], rms_norm(x, p["ln_mlp"]), ctx)
+    return constrain(ctx, x, "batch", "seq_sp", "embed")
 
 
 def run_layers(cfg, layers: Params, x: torch.Tensor,
                positions: torch.Tensor, ffn: FFN = dense_ffn,
-               banded: bool = False, train: bool = False) -> torch.Tensor:
+               banded: bool = False, train: bool = False,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Every layer of the stack in order. With ``banded`` (the reference's
     ``scan_layers_banded``): each period of ``local_global`` local layers
     and one global layer runs its local layers banded and its global
@@ -134,10 +145,11 @@ def run_layers(cfg, layers: Params, x: torch.Tensor,
     for p, window in zip(unstack(layers, len(windows)), windows):
         if banded and window:
             def body(p, x):
-                return _local_layer_fwd(cfg, p, x, positions)
+                return _local_layer_fwd(cfg, p, x, positions, ctx)
         else:
             def body(p, x, window=window):
-                return layer_fwd(cfg, p, x, positions, window, ffn, train)
+                return layer_fwd(cfg, p, x, positions, window, ffn, train,
+                                 ctx)
         x = remat(cfg, body, train)(p, x)
     return x
 
@@ -147,8 +159,9 @@ def run_layers(cfg, layers: Params, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _embed(params: Params, tokens: torch.Tensor,
-           inputs_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-    x = embed(params["embed"], tokens)
+           inputs_embeds: Optional[torch.Tensor],
+           ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    x = embed(params["embed"], tokens, ctx)
     if inputs_embeds is not None:
         x = torch.cat([inputs_embeds.to(x.dtype), x], dim=1)
     return x
@@ -156,16 +169,20 @@ def _embed(params: Params, tokens: torch.Tensor,
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
           inputs_embeds: Optional[torch.Tensor] = None,
-          train: bool = False) -> torch.Tensor:
+          train: bool = False,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """tokens [B,S] -> logits [B,S,V_padded]. ``inputs_embeds`` (vlm) is
     prepended before the token embeddings; ``train`` takes the training
     route."""
-    x = _embed(params, tokens, inputs_embeds)
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    x = run_layers(cfg, params["layers"], x, positions,
-                   banded=_banded_ok(cfg, x.shape[1]), train=train)
-    x = rms_norm(x, params["ln_f"])
-    return unembed(params["embed"], x)
+    with shard_scope(ctx):
+        x = _embed(params, tokens, inputs_embeds, ctx)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = constrain(ctx, x, "batch", "seq_sp", "embed")
+        x = run_layers(cfg, params["layers"], x, positions,
+                       banded=_banded_ok(cfg, x.shape[1]), train=train,
+                       ctx=ctx)
+        x = rms_norm(x, params["ln_f"])
+        return unembed(params["embed"], x, ctx)
 
 
 def cache_specs(cfg, batch: int, max_len: int) -> Params:
@@ -175,59 +192,69 @@ def cache_specs(cfg, batch: int, max_len: int) -> Params:
 
 def _decode_layer(cfg, p: Params, ck: torch.Tensor, cv: torch.Tensor,
                   x: torch.Tensor, positions: torch.Tensor, index, kv_len,
-                  window: int, ffn: FFN
+                  window: int, ffn: FFN, ctx: Optional[ShardCtx] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One layer against one layer's cache slice (written in place);
     returns (x, ck, cv)."""
     h = rms_norm(x, p["ln_attn"])
-    q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta)
+    q, k, v = attn_qkv(p["attn"], h, positions, rope_theta=cfg.rope_theta,
+                       ctx=ctx)
     ck, cv = cache_update(ck, cv, k, v, index)
+    ck = constrain(ctx, ck, "batch", "kv_heads", "kv_seq", "head_dim")
+    cv = constrain(ctx, cv, "batch", "kv_heads", "kv_seq", "head_dim")
     o = attention(q, ck, cv, causal=True, window=window, kv_len=kv_len,
                   use_pallas=False)
-    x = x + attn_out(p["attn"], o)
-    return x + ffn(p, rms_norm(x, p["ln_mlp"])), ck, cv
+    x = x + attn_out(p["attn"], o, ctx)
+    x = x + ffn(p, rms_norm(x, p["ln_mlp"]), ctx)
+    return constrain(ctx, x, "batch", "seq", "embed"), ck, cv
 
 
 def run_cached(cfg, params: Params, cache: Params, x: torch.Tensor,
                positions: torch.Tensor, index, kv_len,
-               ffn: FFN = dense_ffn) -> torch.Tensor:
+               ffn: FFN = dense_ffn,
+               ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """Every layer against its cache slice, in place."""
     for i, window in enumerate(layer_windows(cfg)):
         x, _, _ = _decode_layer(cfg, layer_params(params["layers"], i),
                                 cache["k"][i], cache["v"][i], x, positions,
-                                index, kv_len, window, ffn)
+                                index, kv_len, window, ffn, ctx)
     return x
 
 
 def prefill(cfg, params: Params, tokens: torch.Tensor,
             inputs_embeds: Optional[torch.Tensor] = None,
-            ffn: FFN = dense_ffn) -> Tuple[torch.Tensor, Params]:
+            ffn: FFN = dense_ffn,
+            ctx: Optional[ShardCtx] = None) -> Tuple[torch.Tensor, Params]:
     """Forward that fills the KV cache; returns (last-position logits
     [B,1,V], cache of max_len = the prompt's length)."""
-    x = _embed(params, tokens, inputs_embeds)
-    b, s = x.shape[:2]
-    dev = x.device
-    shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.d_head)
-    cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-             "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
-    zero = torch.zeros((), dtype=torch.int32, device=dev)
-    positions = torch.arange(s, device=dev)[None, :]
-    x = run_cached(cfg, params, cache, x, positions, zero, s, ffn)
-    x = rms_norm(x[:, -1:], params["ln_f"])
-    cache["index"] = zero + s
-    return unembed(params["embed"], x), cache
+    with shard_scope(ctx):
+        x = _embed(params, tokens, inputs_embeds, ctx)
+        b, s = x.shape[:2]
+        dev = x.device
+        shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.d_head)
+        cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
+                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        positions = torch.arange(s, device=dev)[None, :]
+        x = constrain(ctx, x, "batch", "seq_sp", "embed")
+        x = run_cached(cfg, params, cache, x, positions, zero, s, ffn, ctx)
+        x = rms_norm(x[:, -1:], params["ln_f"])
+        cache["index"] = zero + s
+        return unembed(params["embed"], x, ctx), cache
 
 
 def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
-                ffn: FFN = dense_ffn) -> Tuple[torch.Tensor, Params]:
+                ffn: FFN = dense_ffn, ctx: Optional[ShardCtx] = None
+                ) -> Tuple[torch.Tensor, Params]:
     """tokens [B,1] + cache -> (logits [B,1,V], the cache one position
     longer)."""
-    index = cache["index"]
-    positions = index + torch.zeros_like(tokens)
-    x = embed(params["embed"], tokens)
-    x = run_cached(cfg, params, cache, x, positions, index,
-                   index + tokens.shape[1], ffn)
-    x = rms_norm(x, params["ln_f"])
-    return unembed(params["embed"], x), {
-        "k": cache["k"], "v": cache["v"],          # updated in place
-        "index": index + tokens.shape[1]}
+    with shard_scope(ctx):
+        index = cache["index"]
+        positions = index + torch.zeros_like(tokens)
+        x = embed(params["embed"], tokens, ctx)
+        x = run_cached(cfg, params, cache, x, positions, index,
+                       index + tokens.shape[1], ffn, ctx)
+        x = rms_norm(x, params["ln_f"])
+        return unembed(params["embed"], x, ctx), {
+            "k": cache["k"], "v": cache["v"],      # updated in place
+            "index": index + tokens.shape[1]}

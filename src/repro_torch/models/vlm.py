@@ -17,7 +17,7 @@ import torch
 from repro_torch.distributed.sharding import ParamSpec
 
 from . import transformer as tf
-from .layers import Params, layer_norm
+from .layers import Params, ShardCtx, constrain, layer_norm, shard_scope
 
 VIT_DIM = 1024
 
@@ -25,43 +25,52 @@ VIT_DIM = 1024
 def param_specs(cfg) -> Params:
     base = tf.param_specs(cfg)
     base["projector"] = {
-        "ln_w": ParamSpec((VIT_DIM,), torch.float32, "ones"),
-        "ln_b": ParamSpec((VIT_DIM,), torch.float32, "zeros"),
-        "w1": ParamSpec((VIT_DIM, cfg.d_model), init="scaled"),
-        "b1": ParamSpec((cfg.d_model,), torch.float32, "zeros"),
+        "ln_w": ParamSpec((VIT_DIM,), (None,), torch.float32, "ones"),
+        "ln_b": ParamSpec((VIT_DIM,), (None,), torch.float32, "zeros"),
+        "w1": ParamSpec((VIT_DIM, cfg.d_model), (None, "embed"),
+                        init="scaled"),
+        "b1": ParamSpec((cfg.d_model,), ("embed",), torch.float32, "zeros"),
     }
     return base
 
 
-def project_patches(p: Params, patches: torch.Tensor) -> torch.Tensor:
+def project_patches(p: Params, patches: torch.Tensor,
+                    ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """[B, n_prepend, VIT_DIM] -> [B, n_prepend, d_model] (bf16)."""
     h = layer_norm(patches.float(), p["ln_w"], p["ln_b"])
     out = h @ p["w1"].float()
-    return (out + p["b1"][None, None]).to(torch.bfloat16)
+    out = (out + p["b1"][None, None]).to(torch.bfloat16)
+    return constrain(ctx, out, "batch", "seq", "embed")
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
           patches: Optional[torch.Tensor] = None,
-          train: bool = False) -> torch.Tensor:
+          train: bool = False,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """tokens [B, S - n_prepend]; patches [B, n_prepend, VIT_DIM].
     Returns logits over ALL positions (the caller masks the patch span);
     ``train`` takes the dense family's training route."""
     if patches is None:
         raise ValueError("vlm apply() needs `patches`")
-    emb = project_patches(params["projector"], patches)
-    return tf.apply(cfg, params, tokens, inputs_embeds=emb, train=train)
+    with shard_scope(ctx):
+        emb = project_patches(params["projector"], patches, ctx)
+        return tf.apply(cfg, params, tokens, inputs_embeds=emb, train=train,
+                        ctx=ctx)
 
 
 cache_specs = tf.cache_specs
 
 
 def prefill(cfg, params: Params, tokens: torch.Tensor,
-            patches: Optional[torch.Tensor] = None):
+            patches: Optional[torch.Tensor] = None,
+            ctx: Optional[ShardCtx] = None):
     if patches is None:
         raise ValueError("vlm prefill() needs `patches`")
-    emb = project_patches(params["projector"], patches)
-    return tf.prefill(cfg, params, tokens, inputs_embeds=emb)
+    with shard_scope(ctx):
+        emb = project_patches(params["projector"], patches, ctx)
+        return tf.prefill(cfg, params, tokens, inputs_embeds=emb, ctx=ctx)
 
 
-def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor):
-    return tf.decode_step(cfg, params, cache, tokens)
+def decode_step(cfg, params: Params, cache: Params, tokens: torch.Tensor,
+                ctx: Optional[ShardCtx] = None):
+    return tf.decode_step(cfg, params, cache, tokens, ctx=ctx)

@@ -28,10 +28,10 @@ import torch.nn.functional as F
 from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.mamba2 import mamba2_ssd
 
-from .layers import (Params, attention, attn_out, attn_qkv, attn_specs,
-                     cache_update, embed, embed_specs, layer_params, mlp,
-                     mlp_specs, norm_specs, remat, rms_norm, stack_specs,
-                     unembed, unstack)
+from .layers import (Params, ShardCtx, attention, attn_out, attn_qkv,
+                     attn_specs, cache_update, constrain, embed, embed_specs,
+                     layer_params, mlp, mlp_specs, norm_specs, remat,
+                     rms_norm, shard_scope, stack_specs, unembed, unstack)
 
 CONV_K = 4
 F32 = torch.float32
@@ -50,26 +50,31 @@ def _mamba_specs(cfg) -> Params:
     conv_ch = di + 2 * n
     return {
         "ln": norm_specs(d),
-        "in_proj": ParamSpec((d, 2 * di + 2 * n + h), init="scaled"),
-        "conv_w": ParamSpec((CONV_K, conv_ch), F32, "normal", 0.2),
-        "conv_b": ParamSpec((conv_ch,), F32, "zeros"),
-        "a_log": ParamSpec((h,), F32, "zeros"),
-        "dt_bias": ParamSpec((h,), F32, "zeros"),
-        "d_skip": ParamSpec((h,), F32, "zeros"),
-        "norm_w": ParamSpec((di,), F32, "zeros"),
-        "out_proj": ParamSpec((di, d), init="scaled"),
+        "in_proj": ParamSpec((d, 2 * di + 2 * n + h),
+                             ("embed", "ssm_inner"), init="scaled"),
+        "conv_w": ParamSpec((CONV_K, conv_ch), (None, "ssm_inner"), F32,
+                            "normal", 0.2),
+        "conv_b": ParamSpec((conv_ch,), ("ssm_inner",), F32, "zeros"),
+        "a_log": ParamSpec((h,), ("heads",), F32, "zeros"),
+        "dt_bias": ParamSpec((h,), ("heads",), F32, "zeros"),
+        "d_skip": ParamSpec((h,), ("heads",), F32, "zeros"),
+        "norm_w": ParamSpec((di,), ("ssm_inner",), F32, "zeros"),
+        "out_proj": ParamSpec((di, d), ("ssm_inner", "embed"),
+                              init="scaled"),
     }
 
 
 def _shared_block_specs(cfg) -> Params:
     d = cfg.d_model
     return {
-        "in_proj": ParamSpec((2 * d, d), init="scaled"),
+        "in_proj": ParamSpec((2 * d, d), ("embed_cat", "embed"),
+                             init="scaled"),
         "ln_attn": norm_specs(d),
         "attn": attn_specs(d, cfg.n_heads, cfg.n_kv_heads, cfg.d_head),
         "ln_mlp": norm_specs(d),
         "mlp": mlp_specs(cfg.d_model, cfg.d_ff),
-        "out_proj": ParamSpec((d, d), init="scaled"),
+        "out_proj": ParamSpec((d, d), ("embed", "embed_out"),
+                              init="scaled"),
     }
 
 
@@ -113,7 +118,8 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y, xp[:, -(k - 1):]
 
 
-def mamba_block(cfg, p: Params, x: torch.Tensor, state
+def mamba_block(cfg, p: Params, x: torch.Tensor, state,
+                ctx: Optional[ShardCtx] = None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """state = (conv [B,K-1,C], ssd [B,H,N,P]) or (None, None)."""
     bsz, s, d = x.shape
@@ -123,7 +129,7 @@ def mamba_block(cfg, p: Params, x: torch.Tensor, state
     conv_in, ssd_in = state
 
     hin = rms_norm(x, p["ln"])
-    zxbcdt = hin @ p["in_proj"]
+    zxbcdt = constrain(ctx, hin @ p["in_proj"], "batch", "seq", "ssm_inner")
     z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, h], dim=-1)
     xbc, conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_in)
     xbc = F.silu(xbc.float()).to(x.dtype)
@@ -132,6 +138,7 @@ def mamba_block(cfg, p: Params, x: torch.Tensor, state
     dt = F.softplus(dt_raw.float() + p["dt_bias"][None, None])   # [B,S,H]
     a = -torch.exp(p["a_log"].float())                           # [H]
     xh = xs.reshape(bsz, s, h, hd).transpose(1, 2)               # [B,H,S,P]
+    xh = constrain(ctx, xh, "batch", "heads", "seq", "state")
     y, ssd_out = mamba2_ssd(xh, dt.transpose(1, 2), a, bmat, cmat,
                             state=ssd_in)
     # bf16 + f32 promotes to f32, as in the reference: the gate, the norm
@@ -140,7 +147,8 @@ def mamba_block(cfg, p: Params, x: torch.Tensor, state
     y = y.transpose(1, 2).reshape(bsz, s, di)
     y = rms_norm(y, p["norm_w"]) * F.silu(z.float()).to(y.dtype)
     out = (y @ p["out_proj"].to(y.dtype)).to(x.dtype)
-    return x + out, (conv_out, ssd_out)
+    return (x + constrain(ctx, out, "batch", "seq", "embed"),
+            (conv_out, ssd_out))
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +157,7 @@ def mamba_block(cfg, p: Params, x: torch.Tensor, state
 
 def shared_block(cfg, p: Params, x: torch.Tensor, x0: torch.Tensor,
                  positions: torch.Tensor, kv=None, index=None, kv_len=None,
-                 train: bool = False
+                 train: bool = False, ctx: Optional[ShardCtx] = None
                  ) -> Tuple[torch.Tensor, Optional[Tuple]]:
     """kv = (ck, cv), one invocation's cache slice, or None for the
     full-sequence form (the flash kernel's path; with ``train`` the
@@ -157,43 +165,51 @@ def shared_block(cfg, p: Params, x: torch.Tensor, x0: torch.Tensor,
     cat = torch.cat([x, x0], dim=-1)
     hin = cat @ p["in_proj"]
     hin = rms_norm(hin, p["ln_attn"])
-    q, k, v = attn_qkv(p["attn"], hin, positions, rope_theta=cfg.rope_theta)
+    q, k, v = attn_qkv(p["attn"], hin, positions, rope_theta=cfg.rope_theta,
+                       ctx=ctx)
     if kv is None:
         o = attention(q, k, v, causal=True, use_pallas=not train)
         new_kv = None
     else:
         ck, cv = cache_update(kv[0], kv[1], k, v, index)
+        ck = constrain(ctx, ck, "batch", "kv_heads", "kv_seq", "head_dim")
+        cv = constrain(ctx, cv, "batch", "kv_heads", "kv_seq", "head_dim")
         o = attention(q, ck, cv, causal=True, kv_len=kv_len,
                       use_pallas=False)
         new_kv = (ck, cv)
-    hin = hin + attn_out(p["attn"], o)
-    hin = hin + mlp(p["mlp"], rms_norm(hin, p["ln_mlp"]))
-    return x + hin @ p["out_proj"], new_kv
+    hin = hin + attn_out(p["attn"], o, ctx)
+    hin = hin + mlp(p["mlp"], rms_norm(hin, p["ln_mlp"]), ctx)
+    out = constrain(ctx, hin @ p["out_proj"], "batch", "seq", "embed")
+    return x + out, new_kv
 
 
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
-def _mamba_layer(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    return mamba_block(cfg, p, x, (None, None))[0]
+def _mamba_layer(cfg, p: Params, x: torch.Tensor,
+                 ctx: Optional[ShardCtx] = None) -> torch.Tensor:
+    return mamba_block(cfg, p, x, (None, None), ctx)[0]
 
 
 def apply(cfg, params: Params, tokens: torch.Tensor,
-          train: bool = False) -> torch.Tensor:
+          train: bool = False,
+          ctx: Optional[ShardCtx] = None) -> torch.Tensor:
     """tokens [B,S] -> logits [B,S,vocab_padded]; ``train`` takes the
     training route."""
-    x = embed(params["embed"], tokens)
-    x0 = x
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    layer = remat(cfg, _mamba_layer, train)
-    for group in unstack(params["groups"], n_groups(cfg)):
-        x, _ = shared_block(cfg, params["shared"], x, x0, positions,
-                            train=train)
-        for p in unstack(group, cfg.shared_attn_every):
-            x = layer(cfg, p, x)
-    x = rms_norm(x, params["ln_f"])
-    return unembed(params["embed"], x)
+    with shard_scope(ctx):
+        x = embed(params["embed"], tokens, ctx)
+        x0 = x
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = constrain(ctx, x, "batch", "seq_sp", "embed")
+        layer = remat(cfg, _mamba_layer, train)
+        for group in unstack(params["groups"], n_groups(cfg)):
+            x, _ = shared_block(cfg, params["shared"], x, x0, positions,
+                                train=train, ctx=ctx)
+            for p in unstack(group, cfg.shared_attn_every):
+                x = layer(cfg, p, x, ctx)
+        x = rms_norm(x, params["ln_f"])
+        return unembed(params["embed"], x, ctx)
 
 
 def cache_specs(cfg, batch: int, max_len: int) -> Params:
@@ -203,20 +219,25 @@ def cache_specs(cfg, batch: int, max_len: int) -> Params:
     h = di // cfg.ssm_head_dim
     conv_ch = di + 2 * nst
     kv = ParamSpec((g, batch, cfg.n_kv_heads, max_len, cfg.d_head),
+                   ("groups", "batch", "kv_heads", "kv_seq", "head_dim"),
                    torch.bfloat16, "zeros")
     return {
-        "conv": ParamSpec((g, e, batch, CONV_K - 1, conv_ch), torch.bfloat16,
-                          "zeros"),
-        "ssd": ParamSpec((g, e, batch, h, nst, cfg.ssm_head_dim), F32,
-                         "zeros"),
+        "conv": ParamSpec((g, e, batch, CONV_K - 1, conv_ch),
+                          ("groups", "layers", "batch", None, "ssm_inner"),
+                          torch.bfloat16, "zeros"),
+        "ssd": ParamSpec((g, e, batch, h, nst, cfg.ssm_head_dim),
+                         ("groups", "layers", "batch", "heads", "state",
+                          "state"), F32, "zeros"),
         "k": kv, "v": kv,
-        "x0": ParamSpec((batch, 1, cfg.d_model), torch.bfloat16, "zeros"),
-        "index": ParamSpec((), torch.int32, "zeros"),
+        "x0": ParamSpec((batch, 1, cfg.d_model), ("batch", None, "embed"),
+                        torch.bfloat16, "zeros"),
+        "index": ParamSpec((), (), torch.int32, "zeros"),
     }
 
 
-def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
-    x = embed(params["embed"], tokens)
+def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache,
+                    ctx: Optional[ShardCtx] = None):
+    x = embed(params["embed"], tokens, ctx)
     # the concat-skip takes this call's embedding (the reference's x0)
     x0 = x
     index = cache["index"]
@@ -226,16 +247,17 @@ def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
     conv, ssd = [], []
     for g in range(n_groups(cfg)):
         x, _ = shared_block(cfg, params["shared"], x, x0, positions,
-                            (cache["k"][g], cache["v"][g]), index, kv_len)
+                            (cache["k"][g], cache["v"][g]), index, kv_len,
+                            ctx=ctx)
         for i in range(cfg.shared_attn_every):
             conv_in = cache["conv"][g, i]
             x, (cv_out, sd_out) = mamba_block(
                 cfg, layer_params(params["groups"], g, i), x,
-                (conv_in, cache["ssd"][g, i]))
+                (conv_in, cache["ssd"][g, i]), ctx)
             conv.append(cv_out.to(conv_in.dtype))
             ssd.append(sd_out)
     x = rms_norm(x, params["ln_f"])
-    logits = unembed(params["embed"], x[:, -1:])
+    logits = unembed(params["embed"], x[:, -1:], ctx)
     shape = (n_groups(cfg), cfg.shared_attn_every)
     return logits, {
         "conv": torch.stack(conv).reshape(shape + conv[0].shape),
@@ -245,14 +267,18 @@ def _run_with_state(cfg, params: Params, tokens: torch.Tensor, cache):
         "index": index + s}
 
 
-def prefill(cfg, params: Params, tokens: torch.Tensor):
+def prefill(cfg, params: Params, tokens: torch.Tensor,
+            ctx: Optional[ShardCtx] = None):
     """tokens [B,S] -> (last-position logits [B,1,V], cache of length S)."""
     zero = spec_tree_map(
         lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=tokens.device),
         cache_specs(cfg, tokens.shape[0], tokens.shape[1]))
-    return _run_with_state(cfg, params, tokens, zero)
+    with shard_scope(ctx):
+        return _run_with_state(cfg, params, tokens, zero, ctx)
 
 
-def decode_step(cfg, params: Params, cache, tokens: torch.Tensor):
+def decode_step(cfg, params: Params, cache, tokens: torch.Tensor,
+                ctx: Optional[ShardCtx] = None):
     """tokens [B,1] -> (logits [B,1,V], cache one position longer)."""
-    return _run_with_state(cfg, params, tokens, cache)
+    with shard_scope(ctx):
+        return _run_with_state(cfg, params, tokens, cache, ctx)

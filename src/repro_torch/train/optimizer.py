@@ -10,13 +10,22 @@ the state keeps the JAX package's layout (``{"mu", "nu", "master"}`` and
 ``{"v": {...}}``) so a checkpoint holds the same leaves. ``update``
 updates the state's tensors in place (the reference's jitted step
 donates them) and returns new parameter tensors.
+
+On a mesh the parameters, gradients and state are DTensors in the
+parameters' placements (gradients already synced to them): the update is
+elementwise per shard, the global norm counts each element once (a
+replicated leaf once, not once per rank), and Adafactor's row and column
+means over a sharded dim are reduced across its ranks.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Iterator, Tuple, Union
 
 import torch
+
+from repro_torch.distributed.sharding import is_dtensor, replica_scope
 
 Step = Union[int, torch.Tensor]
 
@@ -57,8 +66,22 @@ def tree_from_leaves(paths, leaves):
     return tree
 
 
+def _whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value as a plain tensor (a plain one as is)."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _scope(tree):
+    """Where a tree holds DTensors: plain 0-d tensors (the norm, the bias
+    corrections) mix with them as replicated values."""
+    if any(is_dtensor(x) for _, x in tree_leaves(tree)):
+        return replica_scope()
+    return contextlib.nullcontext()
+
+
 def _global_norm(tree) -> torch.Tensor:
-    sq = [torch.sum(torch.square(x.float())) for _, x in tree_leaves(tree)]
+    sq = [_whole(torch.sum(torch.square(x.float())))
+          for _, x in tree_leaves(tree)]
     return torch.sqrt(sum(sq[1:], sq[0]))
 
 
@@ -97,15 +120,19 @@ def adamw(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
           clip_norm: float = 1.0) -> Optimizer:
     def init(params):
         return {
-            "mu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params),
-            "nu": tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params),
+            "mu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params),
+            "nu": tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                           params),
             "master": tree_map(lambda p: p.to(torch.float32, copy=True),
                                params),
         }
 
     def update(grads, state, params, step):
+        with _scope(grads):
+            return _update(grads, state, params, step)
+
+    def _update(grads, state, params, step):
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         t = _t(step, gnorm.device)
         c1 = 1.0 - torch.tensor(b1, device=t.device) ** t
@@ -153,14 +180,17 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
 
     def init(params):
         def per(p):
-            z = dict(dtype=torch.float32, device=p.device)
             if _factored(p.shape):
-                return {"vr": torch.zeros(p.shape[:-1], **z),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **z)}
-            return {"v": torch.zeros(p.shape, **z)}
+                return {"vr": _zeros_without(p, p.dim() - 1),
+                        "vc": _zeros_without(p, p.dim() - 2)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
         return {"v": tree_map(per, params)}
 
     def update(grads, state, params, step):
+        with _scope(grads):
+            return _update(grads, state, params, step)
+
+    def _update(grads, state, params, step):
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         t = _t(step, gnorm.device)
         beta = 1.0 - t ** (-decay)
@@ -190,6 +220,21 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
         return new_params, state, gnorm
 
     return Optimizer(init, update, "adafactor")
+
+
+def _zeros_without(p: torch.Tensor, dim: int) -> torch.Tensor:
+    """float32 zeros of ``p``'s shape without ``dim``; on a mesh placed as
+    ``p`` is, a shard of ``dim`` becoming a replica."""
+    shape = p.shape[:dim] + p.shape[dim + 1:]
+    if not is_dtensor(p):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor import zeros as dzeros
+    places = [Replicate() if q.is_shard() and q.dim == dim
+              else Shard(q.dim - 1) if q.is_shard() and q.dim > dim else q
+              for q in p.placements]
+    return dzeros(shape, dtype=torch.float32, device_mesh=p.device_mesh,
+                  placements=places)
 
 
 def make_optimizer(name: str, lr: float = 3e-4) -> Optimizer:

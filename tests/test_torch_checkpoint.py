@@ -145,12 +145,13 @@ def test_manager_sync_mode(tmp_path):
 def test_restore_onto_the_named_device_and_from_specs(tmp_path):
     # the port's counterpart of the reference's elastic-restore case: no
     # mesh yet, every leaf whole on the device the caller names; a tree
-    # of ParamSpecs (shape + dtype) serves as ``like`` too
+    # of ParamSpecs (shape + logical axes + dtype) serves as ``like`` too
     t = _tree()
     TC.save_checkpoint(str(tmp_path), 0, t)
-    specs = {"layers": {"w": ParamSpec((4, 8, 8)),
-                        "b": ParamSpec((4, 8), torch.float32)},
-             "step": ParamSpec((), torch.int32)}
+    specs = {"layers": {"w": ParamSpec((4, 8, 8), ("layers", None, None)),
+                        "b": ParamSpec((4, 8), ("layers", None),
+                                       torch.float32)},
+             "step": ParamSpec((), (), torch.int32)}
     got, _ = TC.restore_checkpoint(str(tmp_path), specs, device="cpu")
     _assert_bit_equal(t, got)
     assert all(x.device.type == "cpu" for _, x in
