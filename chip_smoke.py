@@ -75,7 +75,9 @@ no result):
    soundness-gated fixpoint) and each audited call's seconds, reads and
    launches, beside the card's name and power limit.
 2e. The mesh: group B at GROUP_B_ROWS on 4 ranks sharing the card over
-   gloo (``launch_ranks``), per engine and ⋈ exchange a session's four
+   gloo (``launch_ranks``; the DIS shipped through one pickled file),
+   per engine a session under each of its ⋈ exchanges (MESH_SESSIONS:
+   every exchange and both engines, "auto" under both) through the four
    main-path steps (each KG and raw count = phase 2's one-device card
    run; launches per step and rank = exchange sites + radix δ layouts for
    ``radix_partition``, hash δ calls for the other two), and after the
@@ -100,7 +102,7 @@ no result):
    rehydrated), then the last rank reads a copy with damaged caps and
    every rank rejects and builds, with the same KG; the front door over
    the mesh (leader on rank 0): 2 tenants, each over a private copy of
-   phase 2's group-B DIS, 8 rounds of 4,096 rows per source, a
+   phase 2's group-B DIS, 4 rounds of 4,096 rows per source, a
    synchronous and a worker leg, every tenant's KG on every rank = a
    one-device card front door fed the same stream at the same flush
    granularity, every flush on every rank launching all three δ
@@ -133,7 +135,8 @@ no result):
    with ``dedup="hash"``: a writer populating a temporary store, a reader
    (every session ``store_hits == 1``, ``builds == 0``, ``store_checks ==
    1``, KG codes and raw counts equal to the writer's) and a storeless run
-   (the same KGs); each must launch the δ kernels. Then ``python -m
+   (the same KGs; it runs beside the writer, the reader after both);
+   each must launch the δ kernels. Then ``python -m
    repro_torch.analysis store`` over the store exits 0; one entry's caps
    are damaged and a session rejects it, rebuilds and gives the writer's
    KG under ``verify="plan"`` and ``"off"``; an entry written by a CPU
@@ -232,7 +235,7 @@ no result):
 6c. Sharded training (``train_mesh_phase``): 4 ranks sharing the card
    over gloo (``launch_ranks``), each leg against its one-rank run on the
    card (this process, first) within ``TRAIN_MESH_TOL``: (a) qwen3-1.7b
-   at full width, 8 of 28 layers, on ``(data=2, model=2)`` under
+   at full width, 4 of 28 layers, on ``(data=2, model=2)`` under
    ``auto_rules`` (DTensor placements; the data-axis gradient
    all-reduce), (b) gemma3-4b at 6 of 34 layers under its FSDP rules, on
    float32 weights, (c) olmoe-1b-7b at 2 of 16 layers with the local MoE
@@ -246,6 +249,20 @@ no result):
    starts: the ranks' host-staged collectives want the host's cores. Each leg logs per-rank peak memory,
    the first and warm step seconds, the losses and the bytes each rank
    hands to collectives per step. A failing rank fails the group.
+6d. The production dry-run (``dryrun_phase``; ``repro_torch.launch.
+   dryrun``): a fresh process, started after the build and run beside
+   the card's phases, traces DRYRUN_CELLS on a fake world of 512 ranks
+   (fake CUDA tensors, no card): qwen3-1.7b train_4k on (data=16,
+   model=16) and with the int8 error-feedback step on (pod=2, data=16,
+   model=16), rwkv6-7b decode_32k and zamba2-2.7b prefill_32k on the
+   one-pod mesh; it prints per-device GiB against the card's 80 GiB,
+   FLOPs, bytes and collective MiB, and the serving cells' kernel op
+   calls must equal ``expected_launches`` at full depth. Then leg (a)'s
+   step as a one-device cell: its FLOPs must equal ``FlopCounterMode``'s
+   count of a real step of (a) on the card, and its traced peak lie
+   within DRYRUN_PEAK_TOL of (a)'s ``max_memory_allocated``; its
+   roofline bound is reported against (a)'s warm step. Without
+   ``train`` selected, (a) runs for it.
 7. A ``{"kernels": [...]}`` JSON line for all six kernels (``bound_by``
    says bytes or operations; ``bound_unit`` names the unit that sets the
    bound: bytes, bf16 products, fp32 elementwise or exp; with phase 6b,
@@ -260,7 +277,7 @@ fresh process: ``main`` (2), ``paper`` (2b), ``query`` (2c), ``verify``
 (2d), ``mesh`` (2e and 2e′; it runs ``main`` and ``query`` first, whose
 results it checks against), ``kg-serve`` (2f), ``store`` (2g),
 ``kernels`` (3; it runs ``main`` first, for the δ shapes), ``lm`` (4–6),
-``train`` (6b) and ``train-mesh`` (6c). The kernels line then lists the kernels whose timing
+``train`` (6b), ``train-mesh`` (6c) and ``dryrun`` (6d). The kernels line then lists the kernels whose timing
 phases ran. With no arguments every phase runs, in the order above.
 """
 from __future__ import annotations
@@ -277,23 +294,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-#: NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth, and the int32 rate
-#: (the 67 TFLOP/s fp32 figure counts an FMA as two operations: 33.5 T
-#: fp32 instructions/s; Hopper issues int32 at half the fp32 lane rate)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 16.7e12
-#: the H100's L2 cache; timed inputs are spread over copies that together
-#: hold at least twice this, so every call reads its input from HBM
-L2_BYTES = 50 * 2**20
-#: the sleep kernel's cycles per second (the H100 SXM's top SM clock; a
-#: lower clock only lengthens the sleep)
-SLEEP_CYCLES_PER_S = 1.98e9
-#: float32 outside the tensor cores (an FMA counts as two operations), and
-#: the special-function units' exponentials: 16 per SM per clock, 132 SMs,
-#: 1.98 GHz
-FP32_FLOPS_PER_S = 66.9e12
-SFU_OPS_PER_S = 132 * 16 * 1.98e9
-
+#: the card's data-sheet peaks, L2 size and clock are
+#: ``repro_torch.launch.mesh``'s (imported where they are used: the script
+#: starts without torch)
 N_MAIN = 1 << 20
 CHECK_KS = (1, 2, 5, 10)
 #: timing: trials (the median is kept) of back-to-back calls each
@@ -354,8 +357,6 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 4, 32
 LAUNCH_REPORT = {"rwkv6": "rwkv6-7b", "mamba2_ssd": "zamba2-2.7b",
                  "flash_attention": "whisper-large-v3"}
 FLASH_REPORT_SHAPE = "whisper encoder"
-#: the tensor cores' dense bf16 rate: what the same attention could use
-BF16_FLOPS_PER_S = 989e12
 
 #: training (phase 6b; ``*_LR`` the training driver's default): (a) the
 #: full-width step's arch, (batch, sequence) and steps; (b) the training
@@ -392,13 +393,14 @@ TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_SHAPE, TRAIN_STEPS, TRAIN_LR = (2, 2048), 5, 1e-3
 #: (b) and (c) cut for the script's time when 6c came (PR 28): (b) from
 #: 20 steps to 12, (c) from 15 steps with a checkpoint every 5 to 10 with
-#: one every 4 (still 2 failures and 2 restores)
+#: one every 4 (still 2 failures and 2 restores); PR 29 cut (c) to 8
+#: steps, both failures restoring step 4's checkpoint (one save fewer)
 TRAIN_DRIVER_ARGV = ["--arch", TRAIN_ARCH, "--rows", str(GROUP_A_ROWS),
                      "--redundancy", "0.75", "--batch", "8", "--seq", "128",
                      "--steps", "12"]
 TRAIN_CKPT_LAYERS = 2
-TRAIN_CKPT_ARGV = ("--steps", "10", "--ckpt-every", "4", "--fail-at", "5",
-                   "--fail-at", "9")
+TRAIN_CKPT_ARGV = ("--steps", "8", "--ckpt-every", "4", "--fail-at", "5",
+                   "--fail-at", "7")
 #: (d)'s cases, (label, arch, options): each arch's own step (its
 #: optimizer, remat "full", one microbatch), then qwen3 with two
 #: microbatches accumulated in float32, remat "dots" and a grad_compress
@@ -433,7 +435,8 @@ TRAIN_REFUSED = ("rwkv6-7b", "zamba2-2.7b")
 #: allocated a rank when AdamW's temporaries ran the card out of memory
 #: (4 ranks and 5 contexts on 79 GiB); at 20 layers it fit (14.3 GiB a
 #: rank) but took 33 s of a slow host's run, which then passed the
-#: script's 1200 s (1214.7 s): (a) is cut to 8 of 28 layers. gemma3 runs
+#: script's 1200 s (1214.7 s): (a) is cut to 8 of 28 layers, and to 4
+#: when the dry-run phase came (PR 29). gemma3 runs
 #: on float32 weights, as phase
 #: 6's card-against-CPU runs it (LM_REDUCED_F32): its random init is
 #: chaotic in bf16 (grad norm 472), where the first run of this leg put
@@ -441,7 +444,7 @@ TRAIN_REFUSED = ("rwkv6-7b", "zamba2-2.7b")
 TRAIN_MESH_RANKS, TRAIN_MESH_TIMEOUT = 4, 600
 TRAIN_MESH_SHAPE, TRAIN_MESH_STEPS = (2, 1024), 2
 TRAIN_MESH_LEGS = {
-    "a": ("qwen3-1.7b", 8, (2, 2), ("data", "model"), {}),
+    "a": ("qwen3-1.7b", 4, (2, 2), ("data", "model"), {}),
     "b": ("gemma3-4b", 6, (2, 2), ("data", "model"), {"float32": True}),
     "c": ("olmoe-1b-7b", 2, (2, 2), ("data", "model"), {"no_drops": True}),
     "d": ("qwen3-1.7b", 2, (2, 2), ("pod", "data"), {"ef": True,
@@ -506,7 +509,7 @@ INT_KERNELS = ("rowhash", "hash_neighbor_flags", "radix_partition")
 #: the phase groups ``--phase`` selects, in the order they run, and the
 #: groups each needs run first
 PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve", "store",
-          "kernels", "lm", "train", "train-mesh")
+          "kernels", "lm", "train", "train-mesh", "dryrun")
 PHASE_NEEDS = {"mesh": ("main", "query"), "kernels": ("main",)}
 #: the groups that need the KG workloads
 KG_PHASES = ("main", "paper", "query", "verify", "mesh", "kg-serve",
@@ -1285,6 +1288,13 @@ MESH_RANKS = 4
 #: the whole group's limit (and each collective's), seconds
 MESH_TIMEOUT = 600
 MESH_STRATEGIES = ("gather", "repartition", "auto")
+#: the (engine, ⋈ exchange) sessions the mesh phase runs through the main
+#: path's steps: every exchange and every engine, and "auto" under both
+#: (the store writers); sdm keeps "gather" for the skewed DIS's gather
+#: BGP. The full cross product cost 2 sessions more (cut for the script's
+#: time when the dry-run phase came, PR 29)
+MESH_SESSIONS = {"rmlmapper": ("repartition", "auto"),
+                 "sdm": ("gather", "auto")}
 #: the one exchange whose session runs phase 2's warm ``create_kg`` (a
 #: plan-cache hit that recounts the exact annotation, 3–4 s a rank): the
 #: other two skip it, to keep the script inside its time
@@ -1303,8 +1313,8 @@ MESH_STORE_QUERY = "join_2hop"
 MESH_STORE_ORDER = ("sdm", "rmlmapper")
 #: the mesh front door: tenants (one shape: phase 2's group-B DIS, a
 #: private copy each) and rounds of requests of KG_SERVE_BATCH_ROWS rows
-#: per source
-MESH_DOOR_TENANTS, MESH_DOOR_ROUNDS = 2, 8
+#: per source (8 rounds until PR 29 cut them for the script's time)
+MESH_DOOR_TENANTS, MESH_DOOR_ROUNDS = 2, 4
 
 
 def skewed_dis(n_child: int, n_parent: int):
@@ -1399,16 +1409,36 @@ def mesh_query(torch, eng, q, digest=False, **kw):
             "collectives": {k: col_a[k] - col_b[k] for k in col_a}}
 
 
-def mesh_rank(dis, deltas, skew, queries, skew_qs, store_root):
+def ship(obj, path: str) -> str:
+    """Pickle ``obj`` once to ``path`` for spawned ranks, which load it
+    with :func:`unship`: ``launch_ranks`` pickles its arguments again for
+    every rank, through each spawn's pipe, which for a 1M-row DIS takes
+    seconds a rank."""
+    import pickle
+    with open(path, "wb") as f:
+        pickle.dump(obj, f, protocol=pickle.HIGHEST_PROTOCOL)
+    return path
+
+
+def unship(path: str):
+    """What :func:`ship` wrote to ``path`` (this program's own file)."""
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def mesh_rank(dis_file, deltas, skew, queries, skew_qs, store_root):
     """One rank of the mesh phase (every rank runs it, on the one card):
-    per engine and ⋈ exchange a session's four main-path steps, with
+    per engine and ⋈ exchange of MESH_SESSIONS a session's four
+    main-path steps, with
     ``queries[engine]`` (phase 2c's BGPs over its KG) cold and cached
     after the first; the skewed DIS under the repartition exchange, with
     ``skew_qs`` (:func:`skew_queries`); and one calibrated session under
     ``verify="full"`` with the two-hop query. The ``"auto"`` sessions
     write the plan store at ``store_root``. Each step is timed (ending in
     a device sync) and carries its kernel launches, hash δ calls and the
-    collectives its closure calls ran, between a reset and a read."""
+    collectives its closure calls ran, between a reset and a read. The
+    DIS comes from ``dis_file`` (:func:`ship`)."""
     import torch
     from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
     from repro_torch.core.distributed import (exchange_shapes,
@@ -1417,6 +1447,7 @@ def mesh_rank(dis, deltas, skew, queries, skew_qs, store_root):
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.relalg.ops import (hash_dedup_counts,
                                         reset_hash_dedup_counts)
+    dis = unship(dis_file)
     mesh = make_mesh((MESH_RANKS,), ("data",))
     reset_exchange_shapes()
 
@@ -1445,7 +1476,7 @@ def mesh_rank(dis, deltas, skew, queries, skew_qs, store_root):
 
     runs, answers, gather_sessions = {}, {}, {}
     for engine in ENGINES:
-        for strategy in MESH_STRATEGIES:
+        for strategy in MESH_SESSIONS[engine]:
             eng = session(dis, engine, strategy,
                           plan_store=store_root if strategy == "auto"
                           else None)
@@ -1498,7 +1529,8 @@ def mesh_rank(dis, deltas, skew, queries, skew_qs, store_root):
 
 def mesh_phase(torch, dev, card, workloads, main_gpu, query_gpu):
     """Group B at GROUP_B_ROWS on MESH_RANKS ranks sharing the card over
-    gloo: per engine and exchange the four steps of phase 2, each KG (and
+    gloo: per engine and exchange of MESH_SESSIONS the four steps of
+    phase 2, each KG (and
     raw) equal to phase 2's single-device card KG, and phase 2c's BGPs
     over the KG, each answer equal to phase 2c's card answer and the
     oracle's; the skewed DIS with one recompile and the single-device KG,
@@ -1548,12 +1580,14 @@ def mesh_phase(torch, dev, card, workloads, main_gpu, query_gpu):
     _lib.build()            # once, before the ranks reach their launches
     store_root = tempfile.mkdtemp(prefix="mesh_store_")
     t0 = time.perf_counter()
+    dis_file = ship(dis, store_root + ".dis.pkl")
     try:
         ranks = launch_ranks(mesh_rank, MESH_RANKS, timeout=MESH_TIMEOUT,
-                             args=(dis, deltas, skew, queries, skew_qs,
+                             args=(dis_file, deltas, skew, queries, skew_qs,
                                    store_root))
     except RankError as e:
         shutil.rmtree(store_root, ignore_errors=True)
+        os.remove(dis_file)
         raise SmokeFailure(f"a mesh rank failed: {e}") from e
     log(f"mesh: {MESH_RANKS} ranks ran in {time.perf_counter() - t0:.1f} s "
         f"(spawn included)")
@@ -1631,10 +1665,11 @@ def mesh_phase(torch, dev, card, workloads, main_gpu, query_gpu):
     mesh_query_checks(ranks, {e: query_gpu[name, e] for e in ENGINES},
                       skew_answers, totals, card)
     try:
-        mesh_store_door_phase(torch, dev, card, dis, queries, ranks,
-                              store_root, totals)
+        mesh_store_door_phase(torch, dev, card, dis, dis_file, queries,
+                              ranks, store_root, totals)
     finally:
         shutil.rmtree(store_root, ignore_errors=True)
+        os.remove(dis_file)
     log(f"mesh launches (all ranks, all runs): {json.dumps(totals)}")
     check(all(totals[k] > 0 for k in INT_KERNELS),
           f"a δ or exchange kernel was not launched on the mesh: {totals}")
@@ -1675,7 +1710,7 @@ def mesh_query_checks(ranks, one_device, skew_answers, totals, card):
     import numpy as np
     for engine in ENGINES:
         g = one_device[engine]
-        for strategy in MESH_STRATEGIES:
+        for strategy in MESH_SESSIONS[engine]:
             for qname, q in g["queries"].items():
                 want = g["answers"][qname]["cached"]["codes"]
                 oracle = bgp_oracle(g["kg"], q)
@@ -1758,13 +1793,15 @@ def mesh_query_checks(ranks, one_device, skew_answers, totals, card):
         f"{json.dumps(want)} = expected_query_collectives  ({card})")
 
 
-def mesh_door_rank(dis, queries, store_root, streams):
+def mesh_door_rank(dis_file, queries, store_root, streams):
     """One rank of phase 2e′: the store leg (per engine a session over
     ``dis`` with the store phase 2e wrote: ``create_kg`` and the two-hop
     query; then, under sdm, the last rank's view of the store damaged),
     then the front door over the mesh (MESH_DOOR_TENANTS private copies
     of ``dis``, ``streams`` of requests), synchronous and worker legs.
-    Every flush's launches are read between a reset and a read."""
+    Every flush's launches are read between a reset and a read. The DIS
+    comes from ``dis_file`` (:func:`ship`)."""
+    entered = time.time()
     import shutil
 
     import torch
@@ -1773,6 +1810,7 @@ def mesh_door_rank(dis, queries, store_root, streams):
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.serve import FrontDoor
+    dis = unship(dis_file)
     mesh = make_mesh((MESH_RANKS,), ("data",))
     out = {"rank": mesh.rank, "store": {}, "door": {}, "seconds": {}}
     t_leg = time.perf_counter()
@@ -1864,11 +1902,12 @@ def mesh_door_rank(dis, queries, store_root, streams):
         rec["role"] = door.serve_stats()["mesh"]["role"]
         out["door"][leg] = rec
         out["seconds"][f"door {leg} leg"] = time.perf_counter() - t_leg
+    out["wall"] = (entered, time.time())   # body start and end
     return out
 
 
-def mesh_store_door_phase(torch, dev, card, dis, queries, writers,
-                          store_root, totals):
+def mesh_store_door_phase(torch, dev, card, dis, dis_file, queries,
+                          writers, store_root, totals):
     """Phase 2e′: a second spawn of MESH_RANKS ranks on the card. The
     store leg reads back what phase 2e's ``"auto"`` sessions wrote: every
     session a store hit on every rank with ``builds == 0``, the writers'
@@ -1907,16 +1946,19 @@ def mesh_store_door_phase(torch, dev, card, dis, queries, writers,
     log(f"mesh 2e': {MESH_DOOR_TENANTS} x {MESH_DOOR_ROUNDS} requests built "
         f"and served by a one-device card door in "
         f"{time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    t0, wall0 = time.perf_counter(), time.time()
     try:
         ranks = launch_ranks(mesh_door_rank, MESH_RANKS,
                              timeout=MESH_TIMEOUT,
-                             args=(dis, queries, store_root, streams))
+                             args=(dis_file, queries, store_root, streams))
     except RankError as e:
         raise SmokeFailure(f"a phase 2e' rank failed: {e}") from e
+    entered = max(r["wall"][0] for r in ranks) - wall0
+    left = max(r["wall"][1] for r in ranks) - wall0
     log(f"mesh 2e': {MESH_RANKS} ranks ran in "
-        f"{time.perf_counter() - t0:.1f} s (spawn included; the slowest "
-        f"rank's legs: " + ", ".join(
+        f"{time.perf_counter() - t0:.1f} s (spawn included; the last rank "
+        f"entered its body at {entered:.1f} s and the last left it at "
+        f"{left:.1f} s; the slowest rank's legs: " + ", ".join(
             f"{leg} {max(r['seconds'][leg] for r in ranks):.1f} s"
             for leg in ranks[0]["seconds"]) + ")")
     for engine in MESH_STORE_ORDER:
@@ -2252,7 +2294,7 @@ def store_leg(role: str, root: str, dis_path: str, device: str) -> int:
     from repro_torch.api import EngineConfig, KGEngine
     from repro_torch.kernels import launch_counts, reset_launch_counts
     dev = torch.device(device)
-    dises = torch.load(dis_path, weights_only=False)
+    dises = unship(dis_path)
     out = {}
     reset_launch_counts()
     for name, dis in dises.items():
@@ -2288,9 +2330,11 @@ def run_store_leg(role: str, root: str, dis_path: str, dev):
 
 
 def store_phase(torch, dev, card, pristine):
-    """The persistent plan store across fresh processes on the card; then
+    """The persistent plan store across fresh processes on the card (the
+    writer and the storeless run side by side, then the reader); then
     the store check CLI, damaged caps and a CPU session's entry."""
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.api import EngineConfig, KGEngine, clear_plan_cache
     from repro_torch.api.store import (PlanStore, read_container,
@@ -2299,15 +2343,20 @@ def store_phase(torch, dev, card, pristine):
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_store_") as tmp:
         root = os.path.join(tmp, "store")
-        dis_path = os.path.join(tmp, "dises.pt")
+        dis_path = os.path.join(tmp, "dises.pkl")
         dises = {"group_b": pristine[f"group_b_{GROUP_B_ROWS}"],
                  "group_a": pristine[f"group_a_{GROUP_A_ROWS}"]}
         t0 = time.perf_counter()
-        torch.save(dises, dis_path)
+        ship(dises, dis_path)
         log(f"store: DISes saved for the fresh processes in "
             f"{time.perf_counter() - t0:.1f} s")
-        legs = {role: run_store_leg(role, root, dis_path, dev)
-                for role in STORE_ROLES}
+        # the storeless run needs no store: it runs beside the writer
+        with ThreadPoolExecutor(2) as pool:
+            first = {role: pool.submit(run_store_leg, role, root, dis_path,
+                                       dev)
+                     for role in ("writer", "storeless")}
+            legs = {role: f.result() for role, f in first.items()}
+        legs["reader"] = run_store_leg("reader", root, dis_path, dev)
         writer, reader, bare = (legs[r]["sessions"] for r in STORE_ROLES)
         for name, w in writer.items():
             r, b = reader[name], bare[name]
@@ -2404,6 +2453,7 @@ def device_ms(torch, calls, n_calls: int):
     the host took longer to enqueue than the sleep lasted (the device may
     then have idled between calls, and the time is an upper bound).
     """
+    from repro_torch.launch.mesh import SM_CLOCK_HZ
     for fn in calls:                      # warm-up
         fn()
     torch.cuda.synchronize()
@@ -2412,7 +2462,7 @@ def device_ms(torch, calls, n_calls: int):
         calls[i % len(calls)]()
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    cycles = int(max(1e-3, 3 * enqueue_s) * SLEEP_CYCLES_PER_S)
+    cycles = int(max(1e-3, 3 * enqueue_s) * SM_CLOCK_HZ)
     trials, host_bound = [], False
     for _ in range(TIMING_TRIALS):
         slept = torch.cuda.Event(enable_timing=True)
@@ -2453,6 +2503,7 @@ def timing_work(torch, dev, n: int, k: int):
     from repro_torch.kernels.rowhash import (hash_neighbor_flags_kernel,
                                              hash_neighbor_flags_ref,
                                              rowhash_kernel, rowhash_ref)
+    from repro_torch.launch.mesh import L2_BYTES
     from repro_torch.relalg.ops import RADIX_DEDUP_BUCKETS, _radix_dedup_cap
     rng = np.random.default_rng(1)
     rows = rng.integers(0, max(2, n // 4), (n, k)).astype(np.int32)
@@ -2524,6 +2575,7 @@ def radix_call_launches(torch, dev):
 
 def kernel_phase(torch, dev, path_shapes, exchange_shapes=()):
     from repro_torch.kernels import selfcheck
+    from repro_torch.launch.mesh import HBM_BW, PEAK_OPS_INT32
 
     errs = {name: 0.0 for name in INT_KERNELS}
     bad = {name: 0 for name in INT_KERNELS}
@@ -2558,8 +2610,8 @@ def kernel_phase(torch, dev, path_shapes, exchange_shapes=()):
                 torch, dev, n, k).items():
             ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
             plain_ms, p_host = device_ms(torch, plain, TIMING_CALLS["plain"])
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = nops / INT32_OPS_PER_S * 1e3
+            bytes_ms = nbytes / HBM_BW * 1e3
+            ops_ms = nops / PEAK_OPS_INT32 * 1e3
             bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
             bound = max(bytes_ms, ops_ms)
             results[(name, n, k)] = {
@@ -2578,8 +2630,8 @@ def kernel_phase(torch, dev, path_shapes, exchange_shapes=()):
         ms, k_host = device_ms(torch, ex["kernel"], TIMING_CALLS["kernel"])
         plain_ms, p_host = device_ms(torch, ex["plain"],
                                      TIMING_CALLS["plain"])
-        bound = max(ex["bytes"] / HBM_BYTES_PER_S,
-                    ex["ops"] / INT32_OPS_PER_S) * 1e3
+        bound = max(ex["bytes"] / HBM_BW,
+                    ex["ops"] / PEAK_OPS_INT32) * 1e3
         shape = f"N={n} K={k} nb={nb} cap={cb} key_cols={cols}"
         results["radix exchange"] = {"exchange_ms": ms,
                                      "exchange_plain_ms": plain_ms,
@@ -2602,6 +2654,7 @@ def exchange_work(torch, dev, n: int, k: int, nb: int, cb: int, cols):
     import numpy as np
     from repro_torch.kernels.radix_partition import (radix_partition_kernel,
                                                      radix_partition_ref)
+    from repro_torch.launch.mesh import L2_BYTES
     rows = np.random.default_rng(3).integers(
         0, max(2, n // 2), (n, k)).astype(np.int32)
     copies = min(64, max(2, -(-2 * L2_BYTES // (n * k * 4))))
@@ -3025,58 +3078,35 @@ RECURRENCE_PASSES = {
 def recurrence_work(torch, dev, kernel: str, shape=None, state=False):
     """Thunks over input copies for the kernel and its plain version at
     the forward's shape (bf16) or at ``shape`` = (B, T), and the work the
-    function needs: bytes (inputs read once, outputs written once);
-    float32 operations, split by the unit the card could give them to
-    ("products": the matrix products in flop-equivalents, an FMA counting
-    two, times the passes in ``RECURRENCE_PASSES``; "elementwise": the
-    rest, at the float32 CUDA-core rate; "fp32": all of them counted once,
-    the float32 bound of earlier runs); and exponentials. A score's
-    exp(a - b) * r * k counts four elementwise operations plus one
-    exponential; products over a causal triangle count only its lower part
-    (the rest is zero); mamba2's c b^T is shared by the heads of a batch row
-    and counted once per row; its q S is computed as exp(cum) (c S), c
-    being bf16."""
-    from repro_torch.kernels import selfcheck
+    function needs (``repro_torch.kernels.work``): bytes (inputs read
+    once, outputs written once); float32 operations, split by the unit the
+    card could give them to ("products": the matrix products in
+    flop-equivalents, an FMA counting two, times the passes in
+    ``RECURRENCE_PASSES``; "elementwise": the rest, at the float32
+    CUDA-core rate; "fp32": all of them counted once, the float32 bound of
+    earlier runs); and exponentials."""
+    from repro_torch.kernels import selfcheck, work as kwork
     from repro_torch.kernels.mamba2 import mamba2_ssd_kernel, mamba2_ssd_ref
     from repro_torch.kernels.rwkv6 import rwkv6_chunked, rwkv6_kernel
+    from repro_torch.launch.mesh import L2_BYTES
     passes = RECURRENCE_PASSES[kernel]
     if kernel == "rwkv6":
         (b, t), h = shape or LM_SHAPE["rwkv6-7b"], 64
-        n, ln = 64, 32
-        chunks = b * h * (-(-t // ln))
-        nbytes = (5 * b * h * t * n * 2 + h * n * 4
-                  + (1 + state) * b * h * n * n * 4)
-        tri = ln * (ln - 1) // 2
-        prods = {"scores v": 2 * tri * n, "q S": 2 * ln * n * n,
-                 "kw^T v": 2 * ln * n * n}
-        elementwise = chunks * (4 * tri * n + 8 * ln * n + 2 * n * n)
-        exps = chunks * (tri * n + 2 * ln * n + n)
-        products = chunks * sum(prods[k] * passes[k] for k in prods)
-        fp32 = elementwise + chunks * sum(prods.values())
+        w = kwork.rwkv6_work(b, h, t, state)
         make, kern, plain = (selfcheck.rwkv6_inputs, rwkv6_kernel,
                              rwkv6_chunked)
     else:
         (b, t), h = shape or LM_SHAPE["zamba2-2.7b"], 80
-        n = p = ln = 64
-        row_chunks = -(-t // ln)
-        chunks = b * h * row_chunks
-        nbytes = (2 * b * h * t * p * 2 + b * h * t * 4 + 2 * b * t * n * 2
-                  + (1 + state) * b * h * n * p * 4)
-        tri = ln * (ln + 1) // 2
-        prods = {"scores xdt": 2 * tri * p, "c S": 2 * ln * n * p,
-                 "bw^T xdt": 2 * ln * n * p}
-        cbt = b * row_chunks * 2 * tri * n
-        elementwise = chunks * (2 * tri + 3 * ln * n + 2 * n * p)
-        exps = chunks * (tri + 2 * ln + 1)
-        products = (chunks * sum(prods[k] * passes[k] for k in prods)
-                    + cbt * passes["c b^T"])
-        fp32 = elementwise + chunks * sum(prods.values()) + cbt
+        w = kwork.mamba2_work(b, h, t, state)
         make, kern, plain = (selfcheck.ssd_inputs, mamba2_ssd_kernel,
                              mamba2_ssd_ref)
+    nbytes = w["bytes"]
     copies = max(2, -(-2 * L2_BYTES // nbytes))
     ins = [make(dev, b, h, t, state=state, seed=i) for i in range(copies)]
-    work = {"bytes": nbytes, "products": products,
-            "elementwise": elementwise, "exp": exps, "fp32": fp32}
+    work = {"bytes": nbytes,
+            "products": sum(v * passes[k] for k, v in w["products"].items()),
+            "elementwise": w["elementwise"], "exp": w["exp"],
+            "fp32": w["elementwise"] + kwork.flops(w)}
     return ([lambda x=x: kern(*x) for x in ins],
             [lambda x=x: plain(*x) for x in ins], work,
             f"B={b} H={h} T={t}{' from a state' if state else ''}")
@@ -3086,45 +3116,34 @@ def recurrence_bound(work):
     """The least time (ms) the card could take for the work, the unit that
     sets it, and the float32 bound of earlier runs (every operation at the
     CUDA-core rate)."""
-    parts = {"bytes": work["bytes"] / HBM_BYTES_PER_S * 1e3,
-             "bf16 products": work["products"] / BF16_FLOPS_PER_S * 1e3,
-             "fp32 elementwise": work["elementwise"] / FP32_FLOPS_PER_S * 1e3,
-             "exp": work["exp"] / SFU_OPS_PER_S * 1e3}
+    from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,
+                                         PEAK_FLOPS_FP32, SFU_OPS)
+    parts = {"bytes": work["bytes"] / HBM_BW * 1e3,
+             "bf16 products": work["products"] / PEAK_FLOPS_BF16 * 1e3,
+             "fp32 elementwise": work["elementwise"] / PEAK_FLOPS_FP32 * 1e3,
+             "exp": work["exp"] / SFU_OPS * 1e3}
     fp32 = max(parts["bytes"], parts["exp"],
-               work["fp32"] / FP32_FLOPS_PER_S * 1e3)
+               work["fp32"] / PEAK_FLOPS_FP32 * 1e3)
     return max(parts.values()), parts, fp32
-
-
-def attention_pairs(s_q: int, s_k: int, causal: bool, window=None,
-                    kv_len=None) -> int:
-    """Unmasked (q, k) pairs of one (batch, head): the work the inputs
-    need (fully masked pairs need none)."""
-    kv = s_k if kv_len is None else kv_len
-    total = 0
-    for i in range(s_q):
-        qp = i + kv - s_q
-        hi = min(kv - 1, qp) if causal else kv - 1
-        lo = max(0, qp - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
 
 
 def attention_work(torch, dev, shape):
     """Thunks over input copies for the flash kernel, its plain version
     and ``F.scaled_dot_product_attention`` (the library yardstick, never
     called by the port) at a path shape in bf16, and the bytes, products
-    and exponentials the function needs: q, k, v read once and o written
-    once; 4 D operations (two multiply-adds) and one exponential per
-    unmasked pair."""
+    and exponentials the function needs (``repro_torch.kernels.work``: q,
+    k, v read once and o written once; 4 D operations (two multiply-adds)
+    and one exponential per unmasked pair)."""
     import torch.nn.functional as F
-    from repro_torch.kernels import selfcheck
+    from repro_torch.kernels import selfcheck, work as kwork
     from repro_torch.kernels.flash_attention import (attention_ref,
                                                      flash_attention_kernel)
     from repro_torch.kernels.flash_attention.kernel import tiles
+    from repro_torch.launch.mesh import L2_BYTES
     label, b, h, kh, s_q, s_k, d, causal = shape
     gqa = {"enable_gqa": True} if h != kh else {}   # SDPA's grouped heads
-    nbytes = 2 * (2 * b * h * s_q * d + 2 * b * kh * s_k * d)
-    pairs = b * h * attention_pairs(s_q, s_k, causal)
+    w = kwork.attention_work(b, h, kh, s_q, s_k, d, causal)
+    nbytes = w["bytes"]
     copies = max(2, -(-2 * L2_BYTES // nbytes))
     ins = [selfcheck.attention_inputs(dev, b, h, kh, s_q, s_k, d, seed=i)
            for i in range(copies)]
@@ -3134,7 +3153,7 @@ def attention_work(torch, dev, shape):
             [lambda x=x: F.scaled_dot_product_attention(*x, is_causal=causal,
                                                         **gqa)
              for x in ins],
-            nbytes, 4 * pairs * d, pairs,
+            nbytes, kwork.flops(w), w["exp"],
             f"{label} B={b} H={h} S={s_q} D={d} tiles {tiles(d)}")
 
 
@@ -3142,6 +3161,7 @@ def lm_kernel_phase(torch, dev):
     """The float kernels against their plain versions at the paths' shapes
     and the edge cases, then their device times beside the bound."""
     from repro_torch.kernels import selfcheck
+    from repro_torch.launch.mesh import HBM_BW, PEAK_FLOPS_BF16, SFU_OPS
     names = ("rwkv6", "mamba2_ssd", "flash_attention")
     errs = {k: 0.0 for k in names}
     bad = {k: 0 for k in names}
@@ -3191,9 +3211,9 @@ def lm_kernel_phase(torch, dev):
         ms, k_host = device_ms(torch, kern, TIMING_CALLS["kernel"])
         plain_ms, p_host = device_ms(torch, plain, TIMING_CALLS["plain"])
         lib_ms, l_host = device_ms(torch, lib, TIMING_CALLS["kernel"])
-        parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                 "bf16 products": flops / BF16_FLOPS_PER_S * 1e3,
-                 "exp": exps / SFU_OPS_PER_S * 1e3}
+        parts = {"bytes": nbytes / HBM_BW * 1e3,
+                 "bf16 products": flops / PEAK_FLOPS_BF16 * 1e3,
+                 "exp": exps / SFU_OPS * 1e3}
         bound = max(parts.values())
         entry = {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
@@ -3220,7 +3240,9 @@ def train_step_phase(torch, dev, card):
     """(a) TRAIN_ARCH at full width and depth, TRAIN_SHAPE, bf16 weights,
     AdamW, remat "full": TRAIN_STEPS steps on one seeded batch, each
     between a reset and a read of the launch counts (the training route
-    launches no kernel). Returns the launches per step."""
+    launches no kernel), then one more under ``FlopCounterMode``. Returns
+    the launches per step and the step's FLOPs, peak device memory, warm
+    and first seconds."""
     import dataclasses
     import math
     import statistics as st
@@ -3254,6 +3276,13 @@ def train_step_phase(torch, dev, card):
         norms.append(float(m["grad_norm"]))
     peak = torch.cuda.max_memory_allocated(dev)
     warm = st.median(secs[1:])
+    # one more step, counted: the dry-run's FLOPs of this step must equal
+    # it (phase 6d)
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        params, state, _ = step(params, state, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    step_flops = counter.get_total_flops()
     log(f"train (a) {TRAIN_ARCH}: {n_params / 1e9:.3f} B parameters, B={b} "
         f"T={seq} bf16, {opt.name} lr {TRAIN_LR}, remat {cfg.remat}: "
         f"first step {secs[0]:.3f} s, warm {warm:.3f} s (median of "
@@ -3272,7 +3301,8 @@ def train_step_phase(torch, dev, card):
           f"{losses}")
     del params, state, batch
     torch.cuda.empty_cache()
-    return per_step[-1]
+    return per_step[-1], {"flops": step_flops, "peak": peak, "warm": warm,
+                          "first": secs[0]}
 
 
 def _driver_output(fn):
@@ -4030,6 +4060,153 @@ def train_mesh_phase(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 6d: the production dry-run on a fake mesh
+# ---------------------------------------------------------------------------
+
+#: the production cells the dry-run traces on the fake 512-rank world
+#: (``repro_torch.launch.dryrun``): (arch, shape, mesh, config overrides)
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single", {}),
+                ("qwen3-1.7b", "train_4k", "multi",
+                 {"grad_compress_pods": True}),
+                ("rwkv6-7b", "decode_32k", "single", {}),
+                ("zamba2-2.7b", "prefill_32k", "single", {}))
+#: leg (a)'s measured peak device memory against the dry-run's traced
+#: peak of the same step: within 10% (set before the first chip run: the
+#: trace counts each storage's exact bytes, the caching allocator rounds
+#: blocks and holds cuBLAS's workspace)
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_TIMEOUT = 900
+
+
+def dryrun_leg(out_path: str) -> int:
+    """Phase 6d's fresh process (a fake world cannot share a process with
+    a real group): the DRYRUN_CELLS through ``launch/dryrun.py::run_cell``
+    on fake CUDA tensors, and leg (a)'s step as a one-device cell
+    (``build_cell`` with no mesh, ``lower_cell``). Writes the records to
+    ``out_path`` as JSON."""
+    t0 = time.perf_counter()
+    import dataclasses
+    import logging
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch.dryrun import fake_device, run_cell
+    from repro_torch.launch.specs import build_cell, lower_cell
+    torch.set_num_threads(1)
+    os.nice(10)         # it runs beside the card's phases: yield the CPU
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    recs = [run_cell(arch, shape, mesh, device="cuda",
+                     cfg_overrides=over or None)
+            for arch, shape, mesh, over in DRYRUN_CELLS]
+    cfg = dataclasses.replace(lm_config(TRAIN_ARCH), remat="full")
+    b, seq = TRAIN_SHAPE
+    trace = lower_cell(build_cell(cfg, ShapeSpec("train (a)", seq, b,
+                                                 "train"), None, None,
+                                  fake_device("cuda")))
+    with open(out_path, "w") as f:
+        json.dump({"cells": recs, "a": {
+            "flops": trace.flops, "bytes": trace.bytes,
+            "peak": trace.peak_bytes, "args": trace.argument_bytes,
+            "trace_seconds": trace.trace_seconds},
+            "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+class DryRun:
+    """Phase 6d's process, started early: it traces on the host's CPU
+    beside the card's phases, and its log goes to a file."""
+
+    def __init__(self):
+        import tempfile
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.out = os.path.join(self.tmp, "records.json")
+        self.log_path = os.path.join(self.tmp, "log.txt")
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as logf:
+            self.proc = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dryrun-leg",
+                 self.out], stdout=logf, stderr=subprocess.STDOUT)
+
+    def result(self):
+        try:
+            rc = self.proc.wait(timeout=max(
+                1.0, DRYRUN_TIMEOUT - (time.perf_counter() - self.t0)))
+        except subprocess.TimeoutExpired:
+            raise SmokeFailure(f"the dry-run outlived {DRYRUN_TIMEOUT} s")
+        if rc != 0:
+            with open(self.log_path) as f:
+                tail = f.read()[-4000:]
+            raise SmokeFailure(f"the dry-run exited {rc}:\n{tail}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def dryrun_phase(dryrun, step_a, card) -> None:
+    """Phase 6d: the production cells' per-device records (GiB against
+    the card's HBM, FLOPs, bytes, collectives; the serving cells' kernel
+    calls against ``expected_launches`` at full depth), then leg (a)'s
+    step held against its dry-run: FLOPs equal to ``FlopCounterMode``'s
+    count of a real step, the traced peak within DRYRUN_PEAK_TOL of the
+    measured one, and the roofline bound against the measured warm step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import HBM_BW, HBM_BYTES, PEAK_FLOPS_BF16
+    res = dryrun.result()
+    for rec, (arch, shape, mesh, over) in zip(res["cells"], DRYRUN_CELLS):
+        tag = f"dryrun {arch} {shape} {mesh}{' EF' if over else ''}"
+        check(rec.get("status") == "ok", f"{tag}: {rec.get('error')}")
+        mem, coll = rec["memory"], rec["collectives"]
+        per_dev = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        if rec["kind"] != "train":
+            cfg = dataclasses.replace(get_config(arch), **over)
+            what = "prefill" if rec["kind"] == "prefill" else "step"
+            want = {f"repro_torch::{k}": v
+                    for k, v in expected_launches(cfg, what).items()}
+            check(rec["kernel_calls"] == want,
+                  f"{tag}: kernel op calls {rec['kernel_calls']}, expected "
+                  f"{want}")
+        log(f"{tag}: {rec['n_devices']} ranks, args+temp/dev "
+            f"{per_dev / 2**30:.2f} GiB of {HBM_BYTES / 2**30:.0f} GiB "
+            f"(args {mem['argument_size_in_bytes'] / 2**30:.2f}, temp "
+            f"{mem['temp_size_in_bytes'] / 2**30:.2f}), flops/dev "
+            f"{rec['cost']['flops']:.4e}, bytes/dev "
+            f"{rec['cost']['bytes accessed']:.4e}, collectives "
+            f"{coll['total_bytes'] / 2**20:.1f} MiB "
+            f"{json.dumps(coll['bytes_by_op'])}"
+            + (f", cross-pod {coll['cross_pod_bytes'] / 2**20:.1f} MiB"
+               if "cross_pod_bytes" in coll else "")
+            + f", kernel op calls {json.dumps(rec['kernel_calls'])}, "
+            f"traced in {rec['trace_seconds']:.1f} s")
+    a = res["a"]
+    rel = (a["peak"] - step_a["peak"]) / step_a["peak"]
+    terms = {"compute": a["flops"] / PEAK_FLOPS_BF16,
+             "memory": a["bytes"] / HBM_BW}
+    bound = max(terms.values())
+    log(f"dryrun (a) {TRAIN_ARCH} B={TRAIN_SHAPE[0]} T={TRAIN_SHAPE[1]}, "
+        f"one device: FLOPs traced {a['flops']} vs counted on the card "
+        f"{step_a['flops']}; peak traced {a['peak'] / 2**30:.3f} GiB vs "
+        f"measured {step_a['peak'] / 2**30:.3f} GiB ({rel:+.2%}, "
+        f"tolerance {DRYRUN_PEAK_TOL:.0%}); roofline bound {bound:.4f} s "
+        f"(compute {terms['compute']:.4f} s, memory {terms['memory']:.4f} "
+        f"s: {a['bytes']:.4e} bytes) against the measured warm step "
+        f"{step_a['warm']:.4f} s: {bound / step_a['warm']:.1%} of the "
+        f"roofline; the dry-run's process ran {res['seconds']:.1f} s "
+        f"beside the card's phases  ({card})")
+    check(a["flops"] == step_a["flops"],
+          f"dryrun (a): traced FLOPs {a['flops']} != counted "
+          f"{step_a['flops']}")
+    check(abs(rel) <= DRYRUN_PEAK_TOL,
+          f"dryrun (a): traced peak {a['peak']} vs measured "
+          f"{step_a['peak']}: {rel:+.2%}")
+
+
+# ---------------------------------------------------------------------------
 
 def selected_phases(argv):
     """The phase groups ``--phase NAME ...`` selects with the groups they
@@ -4053,6 +4230,8 @@ def selected_phases(argv):
 def main() -> int:
     if sys.argv[1:2] == ["--store-leg"]:    # one of phase 2g's processes
         return store_leg(*sys.argv[2:6])
+    if sys.argv[1:2] == ["--dryrun-leg"]:   # phase 6d's fresh process
+        return dryrun_leg(sys.argv[2])
     phases = selected_phases(sys.argv[1:])
     if phases is None:
         print(f"usage: chip_smoke.py [--phase NAME ...], NAME one of "
@@ -4099,6 +4278,10 @@ def main() -> int:
             log(f"kernels built and loaded in {time.perf_counter() - t0:.2f}"
                 f" s (nvcc {_lib.last_build_seconds:.2f} s)")
             done("build")
+            if "dryrun" in phases:
+                # its fresh process traces on the CPU beside every phase
+                dryrun = DryRun()
+                stack.callback(dryrun.close)
             if phases & set(KG_PHASES):
                 workloads = build_workloads(prebuilt)
                 # the DISes as built, before any session grows their vocabs
@@ -4162,7 +4345,7 @@ def main() -> int:
                 torch.backends.cudnn.allow_tf32 = False
                 # (a) first, its step times free of the worker; (d)'s CPU
                 # steps run in a worker beside (b) and (c)
-                per_step = train_step_phase(torch, dev, card)
+                per_step, step_a = train_step_phase(torch, dev, card)
                 done("train (a) full-width step")
             if "train-mesh" in phases:
                 # before (d)'s CPU worker starts: the ranks' host-staged
@@ -4188,6 +4371,14 @@ def main() -> int:
                        if k not in INT_KERNELS}}
                 train_cpu_phase(torch, dev, worker)
                 done("train (d) card against cpu")
+            if "dryrun" in phases:
+                if "train" not in phases:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                    torch.backends.cudnn.allow_tf32 = False
+                    _, step_a = train_step_phase(torch, dev, card)
+                    done("train (a) full-width step")
+                dryrun_phase(dryrun, step_a, card)
+                done("dryrun")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,3 +1,5 @@
-from .base import ArchConfig, get_config, reduced_config
+from .base import (ArchConfig, ShapeSpec, SHAPES, get_config, list_archs,
+                   reduced_config)
 
-__all__ = ["ArchConfig", "get_config", "reduced_config"]
+__all__ = ["ArchConfig", "ShapeSpec", "SHAPES", "get_config", "list_archs",
+           "reduced_config"]

@@ -2,18 +2,39 @@
 
 One :class:`ArchConfig` per architecture lives in ``configs/<id>.py``
 (same fields and values as the JAX package's), for all ten of its
-architectures. ``reduced_config`` shrinks a config to a CPU-test size of
+architectures; the four input-shape points are global (:data:`SHAPES`,
+the reference's). ``reduced_config`` shrinks a config to a CPU-test size of
 the same family (same block structure, tiny dims).
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def round_up(n: int, mult: int) -> int:
     return ((n + mult - 1) // mult) * mult
+
+
+# ---------------------------------------------------------------------------
+# input shapes (seq_len x global_batch)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # 'train' | 'prefill' | 'decode'
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +74,12 @@ class ArchConfig:
     n_prepend: int = 0
     n_enc_frames: int = 0
 
-    # training / distribution settings of the JAX package, carried so that
-    # a config compares field by field with the reference's; the port's
-    # forward reads none of them (``use_pallas`` included: the models take
-    # the reference's use_pallas=True route, and a CUDA tensor always takes
-    # the kernels, see ``repro_torch.kernels``)
+    # training / distribution settings, the JAX package's: the train
+    # step, ``auto_rules`` and the dry-run read them, the forward none
+    # (``use_pallas`` and ``unroll_layers`` are carried so that a config
+    # compares field by field with the reference's: the models take the
+    # reference's use_pallas=True route, a CUDA tensor always takes the
+    # kernels, and the layers are a Python loop)
     remat: str = "full"
     fsdp: bool = False
     fsdp_pods: bool = False
@@ -83,6 +105,25 @@ class ArchConfig:
     def d_inner(self) -> int:     # mamba2 inner width
         return self.ssm_expand * self.d_model
 
+    def shape_supported(self, shape: ShapeSpec) -> bool:
+        if shape.kind == "decode" and not self.supports_decode:
+            return False
+        if shape.name == "long_500k" and not self.supports_long_context:
+            return False
+        return True
+
+    def microbatches(self, shape: ShapeSpec, n_data_shards: int) -> int:
+        """Grad-accum steps so one microbatch holds <= the token target."""
+        if shape.kind != "train":
+            return 1
+        total = shape.seq_len * shape.global_batch
+        mb = max(1, total // self.microbatch_seq_tokens)
+        # microbatch count must divide global_batch / data shards evenly
+        per_shard = shape.global_batch // n_data_shards
+        while per_shard % mb and mb > 1:
+            mb -= 1
+        return mb
+
 
 # ---------------------------------------------------------------------------
 # registry
@@ -104,6 +145,10 @@ _ALIASES.update({
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b", "internvl2-2b": "internvl2_2b",
     "zamba2-2.7b": "zamba2_2p7b", "whisper-large-v3": "whisper_large_v3",
 })
+
+
+def list_archs() -> Tuple[str, ...]:
+    return ARCH_IDS
 
 
 def get_config(arch: str) -> ArchConfig:

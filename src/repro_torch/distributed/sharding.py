@@ -267,6 +267,71 @@ def make_rules(fsdp: bool = False,
     return base.with_overrides(*overrides) if overrides else base
 
 
+def local_shape(shape: Tuple[int, ...], mesh, placements) -> Tuple[int, ...]:
+    """This rank's shard shape of a tensor of ``shape`` with
+    ``placements`` on ``mesh`` (DTensor's split: ``torch.chunk``'s, so
+    rank 0 takes the first, ceiling-sized piece, XLA's padded per-device
+    shape)."""
+    return shard_extent(shape, mesh.device_mesh, placements)[0]
+
+
+def shard_extent(shape: Tuple[int, ...], device_mesh, placements
+                 ) -> Tuple[Tuple[int, ...], Tuple[int, ...]]:
+    """(this rank's shard shape, its offset in the whole tensor), by
+    DTensor's own split, computed outside any active mode (it builds
+    index tensors a fake or counting mode must not see)."""
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        size, offset = compute_local_shape_and_global_offset(
+            torch.Size(shape), device_mesh, placements)
+    return tuple(size), tuple(offset)
+
+
+def contiguous_stride(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    stride = [1] * len(shape)
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * shape[i + 1]
+    return tuple(stride)
+
+
+def spec_zeros(spec: ParamSpec, device, mesh=None,
+               rules: Optional[AxisRules] = None) -> torch.Tensor:
+    """Zeros of ``spec``'s shape and dtype on ``device``; on a ``mesh``
+    (with ``rules``) a DTensor placed by ``rules.spec_for`` whose rank
+    allocates its shard only."""
+    if mesh is None:
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
+    from torch.distributed.tensor import DTensor
+    places = Sharding(mesh, rules.spec_for(spec)).placements
+    local = torch.zeros(local_shape(spec.shape, mesh, places),
+                        dtype=spec.dtype, device=device)
+    return DTensor.from_local(local, mesh.device_mesh, places,
+                              run_check=False, shape=torch.Size(spec.shape),
+                              stride=contiguous_stride(spec.shape))
+
+
+def abstract_params(specs, mesh=None, rules: Optional[AxisRules] = None,
+                    device: DeviceLike = None):
+    """The dry-run's input: a tree of fake tensors (``FakeTensorMode``:
+    shapes, dtypes and devices, no storage) for a ParamSpec tree, on
+    ``device`` (CUDA unless ``"cpu"``; no card needed): :func:`spec_zeros`
+    under the mode, so on a ``mesh`` (with ``rules``) each leaf is a
+    DTensor whose local tensor is rank 0's fake shard and no leaf is ever
+    whole. Call it inside the ``FakeTensorMode`` the step will run under
+    (one is entered here otherwise)."""
+    from torch._guards import active_fake_mode
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    if mesh is not None and rules is None:
+        raise ValueError("abstract_params on a mesh needs its axis rules")
+    dev = torch.device("cpu") if str(device) == "cpu" else \
+        torch.device("cuda", 0)
+    with active_fake_mode() or FakeTensorMode(allow_non_fake_inputs=True):
+        return spec_tree_map(lambda s: spec_zeros(s, dev, mesh, rules),
+                             specs)
+
+
 # ---------------------------------------------------------------------------
 # initialisation
 # ---------------------------------------------------------------------------

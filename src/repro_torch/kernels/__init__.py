@@ -19,6 +19,8 @@ through the kernels.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import Dict, Optional
 
 import torch
@@ -42,6 +44,36 @@ def reset_launch_counts() -> None:
         _LAUNCHES[name] = 0
 
 
+#: whether fake CPU tensors stand for CUDA ones (:func:`card_trace`)
+_CARD_TRACE = contextvars.ContextVar("card_trace", default=False)
+
+
+@contextlib.contextmanager
+def card_trace():
+    """Within this context, fake tensors (``FakeTensorMode``) on the CPU
+    take the card's route, as CUDA tensors do: the float kernels' ops,
+    whose fake implementations give their outputs. The dry-run traces the
+    card's program so where PyTorch is built without CUDA, which cannot
+    index a fake CUDA tensor (it asks the device for a guard). A real
+    tensor's route never changes."""
+    token = _CARD_TRACE.set(True)
+    try:
+        yield
+    finally:
+        _CARD_TRACE.reset(token)
+
+
+def on_card(x: torch.Tensor) -> bool:
+    """Whether ``x`` takes the kernels' route: a CUDA tensor, or a fake
+    tensor inside :func:`card_trace`."""
+    if x.device.type == "cuda":
+        return True
+    if not _CARD_TRACE.get():
+        return False
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(x)
+
+
 def resolve_use_kernel(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     """Kernel for a CUDA tensor, plain version for a CPU tensor.
 
@@ -49,7 +81,7 @@ def resolve_use_kernel(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
     tensor raise: the plain version is taken only because the tensor lies
     on the CPU.
     """
-    on_cuda = x.device.type == "cuda"
+    on_cuda = on_card(x)
     if use_kernel is None:
         return on_cuda
     if use_kernel and not on_cuda:
@@ -83,6 +115,44 @@ def aligned16(x: torch.Tensor) -> torch.Tensor:
     """
     x = x.contiguous()
     return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
+#: DTensor sharding rules of the float kernels' ops, registered with the
+#: first DeviceMesh (:func:`register_mesh_rules`): importing DTensor costs
+#: every process a second, and only a mesh needs them
+_MESH_RULES: list = []
+
+
+def register_head_sharding(op, batch, heads, outputs: int) -> None:
+    """DTensor's sharding rule for a float kernel's op whose (batch, head)
+    pairs run alone: all inputs whole, or each input sharded on its dim in
+    ``batch`` (one per argument; None: whole), or on its dim in
+    ``heads``; the ``outputs`` outputs take the same batch or head dim
+    (0 or 1). A mesh then runs the op on each rank's shards. The rule is
+    registered by :func:`register_mesh_rules`."""
+    _MESH_RULES.append((op, batch, heads, outputs))
+
+
+def register_mesh_rules() -> None:
+    """Register the pending rules of :func:`register_head_sharding` with
+    DTensor (``launch/mesh.py`` calls this wherever it builds a
+    DeviceMesh, before any DTensor meets an op)."""
+    if not _MESH_RULES:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+    while _MESH_RULES:
+        op, batch, heads, outputs = _MESH_RULES.pop()
+
+        def strategy(*args, batch=batch, heads=heads, outputs=outputs):
+            def spec(dims):
+                return [None if a is None else Replicate() if d is None
+                        else Shard(d) for a, d in zip(args, dims)]
+            return [([Replicate()] * outputs, spec([None] * len(args))),
+                    ([Shard(0)] * outputs, spec(batch)),
+                    ([Shard(1)] * outputs, spec(heads))]
+
+        register_sharding(op)(strategy)
 
 
 def refuse_grad(what: str, *xs: torch.Tensor) -> None:

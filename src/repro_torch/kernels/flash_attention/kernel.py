@@ -1,20 +1,27 @@
 """Wrapper around the CUDA flash-attention kernel
-(``csrc/flash_attention.cu``).
+(``csrc/flash_attention.cu``), as the custom op
+``torch.ops.repro_torch.flash_attention``.
 
-It checks its inputs, copies any that does not start on a 16-byte boundary
-(:func:`repro_torch.kernels.aligned16`), allocates the output with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch reported a CUDA error, and adds one to its launch
-count.
+The wrapper checks its inputs and calls the op. The op's CUDA
+implementation copies any input that does not start on a 16-byte
+boundary (:func:`repro_torch.kernels.aligned16`), allocates the output
+with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch reported a CUDA error, and adds one
+to its launch count. Its fake implementation gives the output's shape
+and dtype, so the op traces on fake tensors (``FakeTensorMode``, the
+dry-run) without a card, as the reference's ``pallas_call`` traces
+abstractly; its FLOP formula (``torch.utils.flop_counter``) comes from
+:mod:`repro_torch.kernels.work`.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import (_lib, aligned16, count_launch, float_code,
-                                 refuse_grad)
+                                 on_card, refuse_grad, work)
 
 #: head sizes the kernel is compiled for (every ``d_head`` of the configs,
 #: and the reduced configs' 16)
@@ -57,22 +64,54 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 0 <= kv <= s_k:
         raise ValueError(f"{what}: kv_len {kv} outside [0, {s_k}]")
     for x in (q, k, v):
-        if x.device != q.device or x.device.type != "cuda":
+        if x.device != q.device or not on_card(x):
             raise ValueError(f"{what}: CUDA tensors on one device required")
         if x.dtype != q.dtype:
             raise ValueError(f"{what}: q, k and v must share a dtype")
+    float_code(q, what)
+    scale = d ** -0.5 if scale is None else float(scale)
+    return _OP(q, k, v, bool(causal), int(window or 0), scale, kv)
+
+
+torch.library.define(
+    "repro_torch::flash_attention",
+    "(Tensor q, Tensor k, Tensor v, bool causal, int window, float scale, "
+    "int kv_len) -> Tensor")
+_OP = torch.ops.repro_torch.flash_attention.default
+
+
+@torch.library.impl("repro_torch::flash_attention", "CUDA")
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, scale: float, kv_len: int) -> torch.Tensor:
+    """The launch, on inputs :func:`flash_attention_kernel` checked."""
+    what = "flash_attention"
+    b, h, s_q, d = q.shape
+    kh, s_k = k.shape[1], k.shape[2]
     code = float_code(q, what)
     q, k, v = (aligned16(x) for x in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    scale = d ** -0.5 if scale is None else float(scale)
     block_q, block_k = tiles(d)
     rc = _lib.lib().mapsdi_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h, kh,
-        s_q, s_k, d, kv, int(causal), int(window or 0), scale, block_q,
+        s_q, s_k, d, kv_len, int(causal), window, scale, block_q,
         block_k, code, q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _lib.check(rc, what)
     count_launch(what)
     return o
+
+
+@torch.library.register_fake("repro_torch::flash_attention")
+def _fake(q, k, v, causal, window, scale, kv_len):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(_OP.overloadpacket)
+def _flops(q_shape, k_shape, v_shape, causal, window, scale, kv_len, *,
+           out_shape=None, **kwargs) -> int:
+    b, h, s_q, d = q_shape
+    return work.flops(work.attention_work(
+        b, h, k_shape[1], s_q, k_shape[2], d, causal, window or None,
+        kv_len))

@@ -1,26 +1,32 @@
-"""Wrapper around the CUDA Mamba2 SSD kernel (``csrc/mamba2_ssd.cu``).
+"""Wrapper around the CUDA Mamba2 SSD kernel (``csrc/mamba2_ssd.cu``), as
+the custom op ``torch.ops.repro_torch.mamba2_ssd``.
 
-It checks its inputs, copies any that does not start on a 16-byte boundary
-(:func:`repro_torch.kernels.aligned16`), allocates the outputs and the
-kernel's workspace (the bf16 route's c b^T per chunk and per-segment
-transitions) with ``torch.empty``, launches on the current stream without
-synchronising, raises if the launch reported a CUDA error, and adds one to
-its launch count (one call, though the bf16 route runs three CUDA
-kernels).
+The wrapper checks its inputs and calls the op. The op's CUDA
+implementation copies any input that does not start on a 16-byte
+boundary (:func:`repro_torch.kernels.aligned16`), allocates the outputs
+and the kernel's workspace (the bf16 route's c b^T per chunk and
+per-segment transitions) with ``torch.empty``, launches on the current
+stream without synchronising, raises if the launch reported a CUDA
+error, and adds one to its launch count (one call, though the bf16 route
+runs three CUDA kernels). Its fake implementation, FLOP formula and
+DTensor sharding (by batch, or by head with b and c whole) let it trace
+on fake tensors and meshes, as the dry-run does.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import (_lib, aligned16, count_launch, float_code,
-                                 refuse_grad)
+                                 on_card, refuse_grad,
+                                 register_head_sharding, work)
 
 #: the kernel's compiled chunk, head dim and state size
-CHUNK = 64
-HEAD_DIM = 64
-STATE = 64
+CHUNK = work.MAMBA2_CHUNK
+HEAD_DIM = work.MAMBA2_HEAD
+STATE = work.MAMBA2_STATE
 #: chunks per segment on the bf16 route, passed to the kernel: segments
 #: run in parallel, joined by their transitions
 SEGMENT_CHUNKS = 4
@@ -53,7 +59,7 @@ def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                          f"{HEAD_DIM} and state {STATE}, got {chunk}, {p} "
                          f"and {n}")
     for x in (la, b, c):
-        if x.device != xdt.device or x.device.type != "cuda":
+        if x.device != xdt.device or not on_card(x):
             raise ValueError(f"{what}: CUDA tensors on one device required")
     if tuple(la.shape) != (bb, h, t) or la.dtype != torch.float32:
         raise ValueError(f"{what}: la must be [B, H, T] float32")
@@ -66,6 +72,25 @@ def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                               state.device != xdt.device):
         raise ValueError(f"{what}: state must be [B, H, N, P] float32 on "
                          "xdt's device")
+    float_code(xdt, what)
+    return _OP(xdt, la, b, c, state)
+
+
+torch.library.define(
+    "repro_torch::mamba2_ssd",
+    "(Tensor xdt, Tensor la, Tensor b, Tensor c, Tensor? state) "
+    "-> (Tensor, Tensor)")
+_OP = torch.ops.repro_torch.mamba2_ssd.default
+
+
+@torch.library.impl("repro_torch::mamba2_ssd", "CUDA")
+def _launch(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor, state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch, on inputs :func:`mamba2_ssd_kernel` checked."""
+    what = "mamba2_ssd"
+    bb, h, t, p = xdt.shape
+    n = b.shape[-1]
     code = float_code(xdt, what)
     xdt, la, b, c = (aligned16(x) for x in (xdt, la, b, c))
     s0 = None if state is None else aligned16(state)
@@ -74,16 +99,37 @@ def mamba2_ssd_kernel(xdt: torch.Tensor, la: torch.Tensor, b: torch.Tensor,
                         device=xdt.device)
     if bb * h == 0:
         return y, s_out
-    work = torch.empty(workspace_bytes(bb, h, t)
-                       if xdt.dtype == torch.bfloat16 else 0,
-                       dtype=torch.uint8, device=xdt.device)
+    work_buf = torch.empty(workspace_bytes(bb, h, t)
+                           if xdt.dtype == torch.bfloat16 else 0,
+                           dtype=torch.uint8, device=xdt.device)
     rc = _lib.lib().mapsdi_mamba2_ssd(
         xdt.data_ptr(), la.data_ptr(), b.data_ptr(), c.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), work.data_ptr() if work.numel() else None,
-        work.numel(), bb, h, t, p, n, chunk, SEGMENT_CHUNKS, code,
+        s_out.data_ptr(),
+        work_buf.data_ptr() if work_buf.numel() else None,
+        work_buf.numel(), bb, h, t, p, n, CHUNK, SEGMENT_CHUNKS, code,
         xdt.device.index or 0,
         torch.cuda.current_stream(xdt.device).cuda_stream)
     _lib.check(rc, what)
     count_launch(what)
     return y, s_out
+
+
+@torch.library.register_fake("repro_torch::mamba2_ssd")
+def _fake(xdt, la, b, c, state):
+    bb, h, _, p = xdt.shape
+    return (torch.empty_like(xdt),
+            xdt.new_empty((bb, h, b.shape[-1], p), dtype=torch.float32))
+
+
+@register_flop_formula(_OP.overloadpacket)
+def _flops(xdt_shape, la_shape, b_shape, c_shape, state_shape, *,
+           out_shape=None, **kwargs) -> int:
+    bb, h, t, _ = xdt_shape
+    return work.flops(work.mamba2_work(bb, h, t))
+
+
+# xdt [B,H,T,P], la [B,H,T] and the state [B,H,N,P] by batch or head; b
+# and c [B,T,N] by batch, or whole
+register_head_sharding(_OP, batch=(0, 0, 0, 0, 0),
+                       heads=(1, 1, None, None, 1), outputs=2)

@@ -1,24 +1,31 @@
-"""Wrapper around the CUDA RWKV6 kernel (``csrc/rwkv6.cu``).
+"""Wrapper around the CUDA RWKV6 kernel (``csrc/rwkv6.cu``), as the
+custom op ``torch.ops.repro_torch.rwkv6``.
 
-It checks its inputs, copies any that does not start on a 16-byte boundary
-(:func:`repro_torch.kernels.aligned16`), allocates the outputs and the
-kernel's workspace (the bf16 route's per-segment transitions) with
-``torch.empty``, launches on the current stream without synchronising,
-raises if the launch reported a CUDA error, and adds one to its launch
-count (one call, though the bf16 route runs two CUDA kernels).
+The wrapper checks its inputs and calls the op. The op's CUDA
+implementation copies any input that does not start on a 16-byte
+boundary (:func:`repro_torch.kernels.aligned16`), allocates the outputs
+and the kernel's workspace (the bf16 route's per-segment transitions)
+with ``torch.empty``, launches on the current stream without
+synchronising, raises if the launch reported a CUDA error, and adds one
+to its launch count (one call, though the bf16 route runs two CUDA
+kernels). Its fake implementation, FLOP formula and DTensor sharding
+(each (batch, head) runs alone: batch or head shards run locally) let
+it trace on fake tensors and meshes, as the dry-run does.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import (_lib, aligned16, count_launch, float_code,
-                                 refuse_grad)
+                                 on_card, refuse_grad,
+                                 register_head_sharding, work)
 
 #: the kernel's compiled chunk and head size
-CHUNK = 32
-HEAD_SIZE = 64
+CHUNK = work.RWKV6_CHUNK
+HEAD_SIZE = work.RWKV6_HEAD
 #: chunks per segment on the bf16 route, passed to the kernel: segments
 #: run in parallel, joined by their transitions
 SEGMENT_CHUNKS = 16
@@ -47,7 +54,7 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{what}: the kernel takes chunk {CHUNK} and head "
                          f"size {HEAD_SIZE}, got {chunk} and {n}")
     for x in (r, k, v, w):
-        if x.device != r.device or x.device.type != "cuda":
+        if x.device != r.device or not on_card(x):
             raise ValueError(f"{what}: CUDA tensors on one device required")
         if tuple(x.shape) != (b, h, t, n):
             raise ValueError(f"{what}: r/k/v/w shapes differ")
@@ -61,6 +68,24 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               state.device != r.device):
         raise ValueError(f"{what}: state must be [B, H, N, N] float32 on r's "
                          "device")
+    float_code(r, what)
+    return _OP(r, k, v, w, u, state)
+
+
+torch.library.define(
+    "repro_torch::rwkv6",
+    "(Tensor r, Tensor k, Tensor v, Tensor w, Tensor u, Tensor? state) "
+    "-> (Tensor, Tensor)")
+_OP = torch.ops.repro_torch.rwkv6.default
+
+
+@torch.library.impl("repro_torch::rwkv6", "CUDA")
+def _launch(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, state: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch, on inputs :func:`rwkv6_kernel` checked."""
+    what = "rwkv6"
+    b, h, t, n = r.shape
     code = float_code(r, what)
     r, k, v, w, u = (aligned16(x) for x in (r, k, v, w, u))
     s0 = None if state is None else aligned16(state)
@@ -68,15 +93,36 @@ def rwkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_out = torch.empty((b, h, n, n), dtype=torch.float32, device=r.device)
     if b * h == 0:
         return y, s_out
-    work = torch.empty(workspace_bytes(b, h, t)
-                       if r.dtype == torch.bfloat16 else 0,
-                       dtype=torch.uint8, device=r.device)
+    work_buf = torch.empty(workspace_bytes(b, h, t)
+                           if r.dtype == torch.bfloat16 else 0,
+                           dtype=torch.uint8, device=r.device)
     rc = _lib.lib().mapsdi_rwkv6(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
         None if s0 is None else s0.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), work.data_ptr() if work.numel() else None,
-        work.numel(), b, h, t, n, chunk, SEGMENT_CHUNKS, code,
+        s_out.data_ptr(),
+        work_buf.data_ptr() if work_buf.numel() else None,
+        work_buf.numel(), b, h, t, n, CHUNK, SEGMENT_CHUNKS, code,
         r.device.index or 0, torch.cuda.current_stream(r.device).cuda_stream)
     _lib.check(rc, what)
     count_launch(what)
     return y, s_out
+
+
+@torch.library.register_fake("repro_torch::rwkv6")
+def _fake(r, k, v, w, u, state):
+    b, h, _, n = r.shape
+    return (torch.empty_like(r),
+            r.new_empty((b, h, n, n), dtype=torch.float32))
+
+
+@register_flop_formula(_OP.overloadpacket)
+def _flops(r_shape, k_shape, v_shape, w_shape, u_shape, state_shape, *,
+           out_shape=None, **kwargs) -> int:
+    b, h, t, _ = r_shape
+    return work.flops(work.rwkv6_work(b, h, t))
+
+
+# r, k, v, w [B,H,T,N] and the state [B,H,N,N] by batch or head; u [H,N]
+# whole, or by head
+register_head_sharding(_OP, batch=(0, 0, 0, 0, None, 0),
+                       heads=(1, 1, 1, 1, 0, 1), outputs=2)

@@ -26,6 +26,11 @@ mesh's own group. :attr:`Mesh.device_mesh` is the DTensor
 ``init_device_mesh``, which would pick NCCL for CUDA ranks that share a
 card).
 
+:func:`make_production_mesh` is the dry-run's mesh: rank 0 of a fake
+world of 512 ranks (``torch.distributed``'s ``"fake"`` backend, whose
+collectives move nothing), so a step traces on fake tensors as one rank
+of the production deployment would run it, with no card.
+
 gloo segfaults on collectives of CUDA tensors on the H100 (PyTorch
 2.11): on every ``reduce_scatter``, and on DTensor's all-gather over an
 axis subgroup. A CUDA mesh on gloo therefore stages its collectives
@@ -55,6 +60,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import register_mesh_rules
 
 
 @dataclasses.dataclass(eq=False)
@@ -98,6 +104,7 @@ class Mesh:
         dm = getattr(self, "_device_mesh", None)
         if dm is None:
             from torch.distributed.device_mesh import DeviceMesh
+            register_mesh_rules()
             groups = [self.group_for(a) for a in self.axis_names]
             grid = torch.arange(self.size).reshape(
                 tuple(self.shape.values()))
@@ -123,6 +130,15 @@ class Mesh:
         its identity (a mesh of axes (a, b) is not one of (b, a))."""
         axes = tuple(self.shape.items())  # lint: allow-id
         return (axes, self.backend)
+
+    def axis_mesh(self, axis: str) -> "Mesh":
+        """This rank's one-axis mesh along ``axis`` (its group of that
+        axis; the DeviceMesh's slice)."""
+        mesh = Mesh(shape={axis: self.shape[axis]}, axis_names=(axis,),
+                    rank=self.coords[axis], device=self.device,
+                    backend=self.backend, group=self.group_for(axis))
+        mesh._device_mesh = self.device_mesh[axis]
+        return mesh
 
     def describe(self) -> Dict[str, object]:
         return {"shape": dict(self.shape), "rank": self.rank,
@@ -192,6 +208,53 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str],
     return Mesh(shape=dict(zip(axes, shape)), axis_names=axes, rank=rank,
                 device=dev, backend=backend, group=group,
                 axis_groups=axis_groups)
+
+
+#: the production meshes of the reference's dry-run: one pod of 256 ranks
+#: as (data=16, model=16), two as (pod=2, data=16, model=16)
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+#: ranks of the fake world the production meshes live in: the reference
+#: forces 512 placeholder devices and the one-pod mesh takes the first 256
+FAKE_WORLD = 512
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device: DeviceLike = None) -> Mesh:
+    """The production mesh of the dry-run: ``(data=16, model=16)``, or
+    ``(pod=2, data=16, model=16)`` with ``multi_pod``, as rank 0 of a
+    fake world of :data:`FAKE_WORLD` ranks (``torch.distributed``'s
+    ``"fake"`` backend, whose collectives move nothing). No card is
+    needed: the dry-run traces its step on fake tensors of ``device``
+    (CUDA unless ``"cpu"``; only its type is kept).
+
+    The fake world is created on first use, only where this process has
+    no process group; a process with a real group (``launch_ranks``, the
+    one-rank in-process group) is refused, never replaced."""
+    shape, axes = PRODUCTION_MESHES[bool(multi_pod)]
+    dev_type = "cpu" if str(device) == "cpu" else "cuda"
+    if not dist.is_initialized():
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=FAKE_WORLD)
+    elif dist.get_backend() != "fake" or _IN_PROCESS[0]:
+        raise RuntimeError(
+            "make_production_mesh needs a process without a process group "
+            f"(this one has a {dist.get_backend()!r} group of "
+            f"{dist.get_world_size()} ranks): run the dry-run in a fresh "
+            "process")
+    n = math.prod(shape)
+    from torch.distributed.device_mesh import DeviceMesh
+    register_mesh_rules()
+    dm = DeviceMesh(dev_type, torch.arange(n).reshape(shape),
+                    mesh_dim_names=axes)
+    mesh = Mesh(shape=dict(zip(axes, shape)), axis_names=axes, rank=0,
+                device=torch.device(dev_type, 0) if dev_type == "cuda"
+                else torch.device("cpu"), backend="fake",
+                group=dist.new_group(list(range(n))),
+                axis_groups={a: dm.get_group(a) for a in axes})
+    mesh._device_mesh = dm
+    return mesh
 
 
 def make_local_mesh(model: int = 1, data: Optional[int] = None,
@@ -520,6 +583,27 @@ def launch_ranks(fn: Callable, n: int, *, device: DeviceLike = None,
 #: counts the bytes that leave one shard. A data-sheet number; no NVLink
 #: peer exists on a one-card machine to measure it.
 NVLINK_BW = 450e9
+
+#: NVIDIA H100 SXM 80GB at its 700 W limit, per card, as NVIDIA's data
+#: sheet gives them (not measured; a card set below 700 W runs slower):
+#: dense bf16 tensor-core rate, HBM3 bandwidth and size. The dry-run's
+#: roofline divides by these; its collective term divides by NVLINK_BW,
+#: which holds inside one 8-GPU NVLink domain (a DGX H100): a 16-wide
+#: ``model`` axis spans two such hosts, whose link is slower, so the term
+#: is optimistic there.
+PEAK_FLOPS_BF16 = 989e12
+HBM_BW = 3.35e12
+HBM_BYTES = 80 * 2**30
+#: the same data sheet's rates outside the tensor cores, for the kernels'
+#: bounds: float32 on the CUDA cores (67 TFLOP/s, an FMA counting two),
+#: int32 at half the float32 lane rate, the special-function units'
+#: exponentials (16 per SM per clock, 132 SMs), the top SM clock and the
+#: L2 cache
+PEAK_FLOPS_FP32 = 66.9e12
+PEAK_OPS_INT32 = 16.7e12
+SM_CLOCK_HZ = 1.98e9
+SFU_OPS = 132 * 16 * SM_CLOCK_HZ
+L2_BYTES = 50 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)

@@ -30,7 +30,8 @@ import torch
 from repro_torch.distributed.sharding import ParamSpec
 
 from .layers import (Params, ShardCtx, attention, attn_out, attn_specs,
-                     cache_update, constrain, embed, embed_specs, gelu,
+                     cache_update, cache_zeros, constrain, embed,
+                     embed_specs, gelu, kv_cache_specs,
                      layer_norm, layer_params, mlp, mlp_specs, remat,
                      shard_scope, sinusoidal_positions, stack_specs,
                      unembed, unstack)
@@ -237,21 +238,24 @@ def prefill(cfg, params: Params, tokens: torch.Tensor,
         raise ValueError("enc-dec prefill() needs `frames`")
     b, s = tokens.shape
     dev = tokens.device
-    ek, ev = cross_kv(cfg, params, encode(cfg, params, frames, ctx=ctx))
-    kv = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.d_head)
-    index = torch.zeros((), dtype=torch.int32, device=dev)
-    cache = {"k": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
-             "v": torch.zeros(kv, dtype=torch.bfloat16, device=dev),
-             "ek": ek.to(torch.bfloat16), "ev": ev.to(torch.bfloat16),
-             "index": index}
-    logits = _run_decoder(cfg, params, tokens, cache, index, ctx)
-    return logits, dict(cache, index=index + s)
+    with shard_scope(ctx):
+        ek, ev = cross_kv(cfg, params, encode(cfg, params, frames, ctx=ctx))
+        kv = kv_cache_specs(cfg.n_layers, b, cfg.n_kv_heads, s,
+                            cfg.d_head)["k"]
+        index = torch.zeros((), dtype=torch.int32, device=dev)
+        cache = {"k": cache_zeros(ctx, kv, dev),
+                 "v": cache_zeros(ctx, kv, dev),
+                 "ek": ek.to(torch.bfloat16), "ev": ev.to(torch.bfloat16),
+                 "index": index}
+        logits = _run_decoder(cfg, params, tokens, cache, index, ctx)
+        return logits, dict(cache, index=index + s)
 
 
 def decode_step(cfg, params: Params, cache, tokens: torch.Tensor,
                 ctx: Optional[ShardCtx] = None):
     """tokens [B,1] -> (logits [B,1,V], cache one position longer; its
     self K/V are updated in place)."""
-    index = cache["index"]
-    logits = _run_decoder(cfg, params, tokens, cache, index, ctx)
-    return logits, dict(cache, index=index + tokens.shape[1])
+    with shard_scope(ctx):
+        index = cache["index"]
+        logits = _run_decoder(cfg, params, tokens, cache, index, ctx)
+        return logits, dict(cache, index=index + tokens.shape[1])

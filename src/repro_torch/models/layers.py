@@ -34,7 +34,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch.distributed.sharding import (AxisRules, ParamSpec,
                                               is_dtensor, logical_sharding,
-                                              replica_scope, spec_tree_map)
+                                              replica_scope, spec_tree_map,
+                                              spec_zeros)
 from repro_torch.kernels.flash_attention import flash_attention
 
 Params = Dict[str, Any]
@@ -144,6 +145,9 @@ def on_shards(fn: Callable, q: torch.Tensor, k: torch.Tensor,
 
     q_to = [keep(a, b) for a, b in zip(q.placements, k.placements)]
     k_to = [keep(b, a) for a, b in zip(q.placements, k.placements)]
+    # a replicated position (a decode step's kv_len) is the same value in
+    # every rank
+    kw = {n: a.full_tensor() if is_dtensor(a) else a for n, a in kw.items()}
     out = fn(local_shard(q.redistribute(dm, q_to)),
              local_shard(k.redistribute(dm, k_to)),
              local_shard(v.redistribute(dm, k_to)), **kw)
@@ -685,13 +689,60 @@ def kv_cache_specs(n_layers: int, batch: int, n_kv_heads: int, max_len: int,
             "index": ParamSpec((), (), torch.int32, "zeros")}
 
 
+def cache_zeros(ctx: Optional[ShardCtx], spec: ParamSpec,
+                device) -> torch.Tensor:
+    """A fresh cache leaf of ``spec``: zeros, on a mesh a DTensor whose
+    rank holds its shard only."""
+    return (spec_zeros(spec, device) if ctx is None
+            else spec_zeros(spec, device, ctx.mesh, ctx.rules))
+
+
+def _cache_write(cache: torch.Tensor, new: torch.Tensor,
+                 index) -> torch.Tensor:
+    """``new`` [B,KH,S_new,Dh] written at ``index`` into each rank's
+    shard of a DTensor cache [B,KH,S_max,Dh], in place, as GSPMD
+    partitions ``dynamic_update_slice``: ``new`` is laid out as the
+    cache's shard but whole along the sequence, and where the cache's
+    sequence is sharded (``kv_seq``) each rank takes the positions that
+    fall in its part."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.distributed.sharding import shard_extent
+    dm, places = cache.device_mesh, cache.placements
+    s_new, s_max = new.shape[2], cache.shape[2]
+    to = [Replicate() if p.is_shard() and p.dim == 2 else p for p in places]
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, dm, [Replicate()] * dm.ndim,
+                                 run_check=False)
+    src = new.redistribute(dm, to).to_local().to(cache.dtype)
+    local = cache.to_local()
+    if is_dtensor(index):             # a replicated 0-d position
+        index = index.full_tensor()
+    start = torch.clamp(torch.as_tensor(index, device=local.device),
+                        0, s_max - s_new)
+    if to == list(places):            # the sequence is whole in each rank
+        pos = start + torch.arange(s_new, device=local.device)
+        local.index_copy_(2, pos, src)
+        return cache
+    _, offset = shard_extent(cache.shape, dm, places)
+    j = (offset[2] + torch.arange(local.shape[2], device=local.device)
+         - start)
+    mine = ((j >= 0) & (j < s_new))[None, None, :, None]
+    rows = src.index_select(2, torch.clamp(j, 0, s_new - 1))
+    local.copy_(torch.where(mine, rows, local))
+    return cache
+
+
 def cache_update(cache_k: torch.Tensor, cache_v: torch.Tensor,
                  k: torch.Tensor, v: torch.Tensor, index
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write k/v [B,KH,S_new,Dh] at position ``index`` (an int or a 0-d
     tensor) of one layer's cache [B,KH,S_max,Dh], clamped to fit as
     ``lax.dynamic_update_slice`` clamps it. The cache is updated in place
-    (the reference's jit does the same to its buffer) and returned."""
+    (the reference's jit does the same to its buffer) and returned; a
+    DTensor cache (a mesh) in each rank's shard (:func:`_cache_write`)."""
+    if is_dtensor(cache_k):
+        return (_cache_write(cache_k, k, index),
+                _cache_write(cache_v, v, index))
     s_new, s_max = k.shape[2], cache_k.shape[2]
     start = torch.clamp(torch.as_tensor(index, device=cache_k.device),
                         0, s_max - s_new)

@@ -39,6 +39,7 @@ import torch
 
 from .layers import (Params, ShardCtx, attention, attn_out, attn_qkv,
                      attn_specs, banded_local_attention, cache_update,
+                     cache_zeros,
                      constrain, embed, embed_specs, kv_cache_specs,
                      layer_params, mlp, mlp_specs, norm_specs, remat,
                      rms_norm, shard_scope, stack_specs, unembed, unstack)
@@ -231,9 +232,10 @@ def prefill(cfg, params: Params, tokens: torch.Tensor,
         x = _embed(params, tokens, inputs_embeds, ctx)
         b, s = x.shape[:2]
         dev = x.device
-        shape = (cfg.n_layers, b, cfg.n_kv_heads, s, cfg.d_head)
-        cache = {"k": torch.zeros(shape, dtype=torch.bfloat16, device=dev),
-                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=dev)}
+        kv = kv_cache_specs(cfg.n_layers, b, cfg.n_kv_heads, s,
+                            cfg.d_head)["k"]
+        cache = {"k": cache_zeros(ctx, kv, dev),
+                 "v": cache_zeros(ctx, kv, dev)}
         zero = torch.zeros((), dtype=torch.int32, device=dev)
         positions = torch.arange(s, device=dev)[None, :]
         x = constrain(ctx, x, "batch", "seq_sp", "embed")

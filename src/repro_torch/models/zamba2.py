@@ -29,7 +29,8 @@ from repro_torch.distributed.sharding import ParamSpec, spec_tree_map
 from repro_torch.kernels.mamba2 import mamba2_ssd
 
 from .layers import (Params, ShardCtx, attention, attn_out, attn_qkv,
-                     attn_specs, cache_update, constrain, embed, embed_specs,
+                     attn_specs, cache_update, cache_zeros, constrain,
+                     embed, embed_specs,
                      layer_params, mlp, mlp_specs, norm_specs, remat,
                      rms_norm, shard_scope, stack_specs, unembed, unstack)
 
@@ -271,7 +272,7 @@ def prefill(cfg, params: Params, tokens: torch.Tensor,
             ctx: Optional[ShardCtx] = None):
     """tokens [B,S] -> (last-position logits [B,1,V], cache of length S)."""
     zero = spec_tree_map(
-        lambda sp: torch.zeros(sp.shape, dtype=sp.dtype, device=tokens.device),
+        lambda sp: cache_zeros(ctx, sp, tokens.device),
         cache_specs(cfg, tokens.shape[0], tokens.shape[1]))
     with shard_scope(ctx):
         return _run_with_state(cfg, params, tokens, zero, ctx)

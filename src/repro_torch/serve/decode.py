@@ -2,22 +2,30 @@
 
 The cache layout (KV caches for attention, recurrent states for rwkv and
 hybrid) is owned by the family module (``cache_specs``). Everything runs
-under ``torch.inference_mode()`` (the kernels have no backward); a serve
-step updates the attention caches it is given in place.
+under ``torch.inference_mode()`` (the kernels have no backward), or on a
+mesh under ``torch.no_grad()`` (a DTensor made outside inference mode
+cannot be viewed inside it); a serve step updates the attention caches
+it is given in place.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.models import get_model
+from repro_torch.models.layers import ShardCtx
 
 
-def make_prefill(cfg) -> Callable:
+def _no_grad(ctx: Optional[ShardCtx]):
+    return torch.inference_mode() if ctx is None else torch.no_grad()
+
+
+def make_prefill(cfg, ctx: Optional[ShardCtx] = None) -> Callable:
     """(params, batch) -> (last-position logits, cache). Batch: tokens
-    [B, S] (+ patches / frames for vlm / encdec)."""
+    [B, S] (+ patches / frames for vlm / encdec). On a mesh (``ctx``) the
+    parameters and the batch are DTensors placed by ``ctx.rules``."""
     model = get_model(cfg.family)
 
     def prefill(params, batch):
@@ -26,19 +34,21 @@ def make_prefill(cfg) -> Callable:
             kwargs["patches"] = batch["patches"]
         if cfg.family == "encdec":
             kwargs["frames"] = batch["frames"]
-        with torch.inference_mode():
-            return model.prefill(cfg, params, batch["tokens"], **kwargs)
+        with _no_grad(ctx):
+            return model.prefill(cfg, params, batch["tokens"], ctx=ctx,
+                                 **kwargs)
 
     return prefill
 
 
-def make_serve_step(cfg) -> Callable:
-    """(params, cache, tokens [B,1]) -> (logits [B,1,V], cache)."""
+def make_serve_step(cfg, ctx: Optional[ShardCtx] = None) -> Callable:
+    """(params, cache, tokens [B,1]) -> (logits [B,1,V], cache); on a
+    mesh as :func:`make_prefill`."""
     model = get_model(cfg.family)
 
     def serve_step(params, cache, tokens):
-        with torch.inference_mode():
-            return model.decode_step(cfg, params, cache, tokens)
+        with _no_grad(ctx):
+            return model.decode_step(cfg, params, cache, tokens, ctx=ctx)
 
     return serve_step
 

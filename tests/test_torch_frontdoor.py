@@ -321,7 +321,12 @@ def test_worker_thread_mode():
 
 def test_worker_threads_many_clients_every_ticket_resolves():
     """4 client threads submit to a running worker: every ticket resolves
-    and each tenant's KG equals a dedicated session's as a row set."""
+    and each tenant's KG equals a dedicated session's, bit for bit, when
+    that session ingests the same requests in the same flushes (each
+    ticket's ``flush_id``). How the worker splits the stream into flushes
+    depends on timing, and the vocab numbers new terms in the order the
+    ingests meet them, so the codes of one merged ingest equal the door's
+    only when the door happened to flush each tenant once."""
     door = _door(flush_window=0.01, max_queue=256)
     for t in range(2):
         door.register(f"t{t}", _tdis(shape=t))
@@ -333,7 +338,7 @@ def test_worker_threads_many_clients_every_ticket_resolves():
             tid, recs = f"t{(c + i) % 2}", _recs(1, seed=500 + 10 * c + i)
             with lock:       # arrival order = the order recorded here
                 resp = door.submit(tid, recs)
-                sent[tid].append(recs)
+                sent[tid].append((recs, resp))
                 tickets.append(resp)
 
     door.start()
@@ -353,14 +358,18 @@ def test_worker_threads_many_clients_every_ticket_resolves():
         eng = TA.KGEngine(_tdis(shape=int(tid[1])),
                           config=TA.EngineConfig(**CFG), device="cpu")
         eng.create_kg()
-        merged = {}
-        for recs in stream:
-            for name, rows in recs.items():
-                merged.setdefault(name, []).extend(rows)
-        kg, _ = eng.ingest({
-            n: TR.Table.from_records(r, eng.sources[n].attrs, eng.vocab,
-                                     device="cpu")
-            for n, r in merged.items()})
+        flushes = {}          # flush id -> the tenant's requests in order
+        for recs, tk in stream:
+            flushes.setdefault(tk.result().flush_id, []).append(recs)
+        for fid in sorted(flushes):
+            merged = {}
+            for recs in flushes[fid]:
+                for name, rows in recs.items():
+                    merged.setdefault(name, []).extend(rows)
+            kg, _ = eng.ingest({
+                n: TR.Table.from_records(r, eng.sources[n].attrs, eng.vocab,
+                                         device="cpu")
+                for n, r in merged.items()})
         assert door.kg(tid).row_set() == kg.row_set()
 
 
